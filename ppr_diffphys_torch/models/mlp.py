@@ -1,0 +1,185 @@
+"""Time-conditioned MLPs (PyTorch), counterpart of
+``ppr_diffphys_tpu/models/mlp.py`` (serving subset).
+
+- ``posenc``: Fourier embedding with the optional cosine annealing window;
+- ``TimeMLP``: TimeEmbedding (fourier -> linear, concat per-video instance
+  code -> linear) + trunk with skip connections + scaled output head, with
+  the state-dict keys of the reference's torch TimeMLPWrapper
+  (``time_embedding.mapping1.*``, ``time_embedding.inst_embedding.mapping.weight``,
+  ``linear_<i>.0.*``, ``linear_final.0.*``, ``head.0.*``), so the keys
+  written by ``ppr_diffphys_tpu.models.torch_adapter.timemlp_state_to_torch``
+  load directly;
+- ``FrameSampler``: raw (possibly fractional) frame ids -> normalized time
+  and video id on the device;
+- ``timemlp_params_from_jax``: a flax TimeMLP parameter tree of numpy
+  arrays (as the JAX package pickles it) -> a ``TimeMLP`` state dict.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def posenc(x: torch.Tensor, n_freqs: int, alpha: Optional[float] = None) -> torch.Tensor:
+    """(..., C) -> (..., C*(1+2*n_freqs)): [x, sin(2^k x), cos(2^k x), ...]."""
+    if n_freqs == -1:
+        return x[..., :0]
+    if n_freqs == 0:
+        return x
+    freqs = 2.0 ** torch.arange(n_freqs, dtype=x.dtype, device=x.device)
+    sig = x[..., None, :] * freqs[:, None]  # (..., n_freqs, C)
+    bands = torch.stack([torch.sin(sig), torch.cos(sig)], dim=-2)  # (..., n, 2, C)
+    if alpha is not None:
+        aw = alpha * n_freqs - torch.arange(n_freqs, dtype=x.dtype, device=x.device)
+        window = 0.5 * (1 + torch.cos(math.pi * torch.clamp(aw, 0.0, 1.0) + math.pi))
+        bands = bands * window[:, None, None]
+    out_bands = bands.reshape(bands.shape[:-3] + (-1,))
+    return torch.cat([x, out_bands], dim=-1)
+
+
+@dataclass(frozen=True)
+class FrameSampler:
+    """Static frame bookkeeping; methods are device tensor math.
+
+    frame_offset_raw: (V+1,) cumulative raw frame counts per video."""
+
+    frame_offset_raw: tuple
+    time_scale: float = 1.0
+
+    @property
+    def offsets(self):
+        return np.asarray(self.frame_offset_raw)
+
+    @property
+    def num_vids(self):
+        return len(self.frame_offset_raw) - 1
+
+    @property
+    def max_ts(self):
+        off = self.offsets
+        return int((off[1:] - off[:-1]).max())
+
+    def _off(self, like):
+        return torch.as_tensor(self.offsets, dtype=torch.float32, device=like.device)
+
+    def frame_to_vid(self, frame_id: torch.Tensor) -> torch.Tensor:
+        """Video id of (possibly fractional) raw frame ids."""
+        off = self._off(frame_id)
+        vid = torch.searchsorted(off, frame_id.to(torch.float32).contiguous(), right=True) - 1
+        return torch.clamp(vid, 0, self.num_vids - 1)
+
+    def frame_to_tid(self, frame_id: torch.Tensor) -> torch.Tensor:
+        """Normalized in-video time in [-1, 1] * time_scale."""
+        off = self._off(frame_id)
+        vid = self.frame_to_vid(frame_id)
+        vstart = off[vid]
+        vlen = off[vid + 1] - off[vid]
+        tid = (frame_id.to(torch.float32) - vstart - vlen / 2) / self.max_ts * 2
+        return tid * self.time_scale
+
+
+def resolve_num_freq_t(num_freq_t: int, max_ts: int) -> int:
+    """Frequency count scaled to sequence length: num_frames=64 -> freq 6."""
+    if num_freq_t <= 0:
+        return num_freq_t
+    return int(np.rint(np.log2(max_ts / 64.0) + num_freq_t))
+
+
+def _init_linear(lin: nn.Linear, gen: torch.Generator):
+    """LeCun-normal weights and zero bias (flax Dense's default scale)."""
+    with torch.no_grad():
+        lin.weight.normal_(0.0, 1.0 / math.sqrt(lin.in_features), generator=gen)
+        lin.bias.zero_()
+
+
+class _InstEmbedding(nn.Module):
+    def __init__(self, num_inst: int, dim: int):
+        super().__init__()
+        self.mapping = nn.Embedding(num_inst, dim)
+
+
+class TimeEmbedding(nn.Module):
+    """fourier(t) -> mapping1; concat instance code -> mapping2."""
+
+    def __init__(self, num_freq_t: int, num_inst: int, out_channels: int = 256):
+        super().__init__()
+        self.num_freq_t = num_freq_t
+        self.num_inst = num_inst
+        in_ch = 1 + 2 * num_freq_t if num_freq_t > 0 else (1 if num_freq_t == 0 else 0)
+        self.mapping1 = nn.Linear(in_ch, out_channels)
+        self.inst_embedding = _InstEmbedding(max(num_inst, 1), out_channels)
+        self.mapping2 = nn.Linear(2 * out_channels, out_channels)
+
+    def forward(self, t_sample: torch.Tensor, inst_id: torch.Tensor) -> torch.Tensor:
+        coeff = self.mapping1(posenc(t_sample[..., None], self.num_freq_t))
+        ids = torch.zeros_like(inst_id) if self.num_inst == 1 else inst_id
+        inst_code = self.inst_embedding.mapping(ids)
+        return self.mapping2(torch.cat([coeff, inst_code], dim=-1))
+
+
+class TimeMLP(nn.Module):
+    """Time embedding -> D-layer ReLU trunk with skip concats (final ReLU)
+    -> head, scaled by ``output_scale``. Defaults D=5, W=256,
+    skips=(1,2,3,4)."""
+
+    def __init__(self, num_freq_t: int, num_inst: int, out_channels: int,
+                 D: int = 5, W: int = 256, skips: Sequence[int] = (1, 2, 3, 4),
+                 output_scale: float = 1.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.D, self.W = D, W
+        self.skips = tuple(skips)
+        self.output_scale = output_scale
+        self.time_embedding = TimeEmbedding(num_freq_t, num_inst, W)
+        for i in range(D):
+            in_ch = 2 * W if i in self.skips else W
+            setattr(self, "linear_%d" % (i + 1), nn.Sequential(nn.Linear(in_ch, W)))
+        self.linear_final = nn.Sequential(nn.Linear(W, W))
+        self.head = nn.Sequential(nn.Linear(W, out_channels))
+        if generator is not None:
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    _init_linear(m, generator)
+                elif isinstance(m, nn.Embedding):
+                    with torch.no_grad():
+                        m.weight.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, t_sample: torch.Tensor, inst_id: torch.Tensor) -> torch.Tensor:
+        x = self.time_embedding(t_sample, inst_id)
+        out = x
+        for i in range(self.D):
+            if i in self.skips:
+                out = torch.cat([x, out], dim=-1)
+            out = torch.relu(getattr(self, "linear_%d" % (i + 1))(out))
+        feat = torch.relu(self.linear_final(out))
+        return self.head(feat) * self.output_scale
+
+
+def _dense(p, key: str) -> dict:
+    return {
+        key + ".weight": torch.as_tensor(np.asarray(p["kernel"], np.float32).T.copy()),
+        key + ".bias": torch.as_tensor(np.asarray(p["bias"], np.float32).copy()),
+    }
+
+
+def timemlp_params_from_jax(np_tree) -> dict:
+    """Flax TimeMLP params (nested dicts of arrays) -> TimeMLP state dict.
+
+    Flax ``Dense.kernel`` is (in, out) and transposes to torch's (out, in);
+    ``Embed.embedding`` maps to ``inst_embedding.mapping.weight``."""
+    te = np_tree["time_embedding"]
+    sd = {}
+    sd.update(_dense(te["mapping1"], "time_embedding.mapping1"))
+    sd.update(_dense(te["mapping2"], "time_embedding.mapping2"))
+    sd["time_embedding.inst_embedding.mapping.weight"] = torch.as_tensor(
+        np.asarray(te["inst_embedding"]["embedding"], np.float32).copy()
+    )
+    for k, v in np_tree["trunk"].items():
+        sd.update(_dense(v, k + ".0"))
+    sd.update(_dense(np_tree["head"], "head.0"))
+    return sd

@@ -1,0 +1,283 @@
+"""The serving window: the whole forward window of frame intervals in one
+CUDA launch, counterpart of the window half of
+``ppr_diffphys_tpu/sim/pallas_soa.py`` (``build_soa_static``,
+``traced_planes``, ``build_soa_window``).
+
+- :func:`soa_static` builds the per-model constant tensors once. The
+  plane-layout arrays keep the JAX names and shapes (``axis_c``, ``xp_q``,
+  ``lim``, ``cpt``, ...); gathers, scatters and joint-type masks are index
+  tables (``parent``, ``joint_type``, ``dof_idx``, ``contact_body``)
+  instead of the TPU kernel's one-hot matrices.
+- :func:`traced_planes` lays the per-call parameters out as planes,
+  shared (lane 1) or per-env (lane E), exactly as the JAX function does.
+- :class:`SoaWindow` is the wrapper: CPU tensors take the plain PyTorch
+  version (``integrator.rollout``); CUDA tensors launch
+  ``csrc/soa_window.cu`` or raise. It never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..csrc import build as kbuild
+from .builder import JOINT_COMPOUND, JOINT_FIXED, JOINT_REVOLUTE
+from .integrator import SemiImplicitIntegrator, SimParams, SimState, dof_index, rollout
+
+KERNEL = "soa_window"
+TRACED_NAMES = ("gains", "inv_m", "inertia", "inv_inertia")
+THREADS_PER_BLOCK = 32
+
+
+def soa_static(model, device="cpu") -> dict:
+    """Static per-model constants (pallas_soa.py:409-588 build_soa_static).
+
+    Plane-layout float arrays carry the JAX names; the one-hot gather and
+    scatter matrices and the joint-type masks become the int32 index tables
+    ``parent`` (B,), ``joint_type`` (B,), ``dof_idx`` (B, 3) and
+    ``contact_body`` (C,)."""
+    jt = model.joint_type
+    parent = model.joint_parent
+    parent_safe = np.where(parent >= 0, parent, 0)
+    dof_idx = dof_index(model)
+
+    xp_t = model.joint_X_p[:, 0:3].T[:, :, None]
+    com_parent = model.body_com[parent_safe].T[:, :, None]
+    lim = np.stack(
+        [
+            model.joint_limit_lower[dof_idx],
+            model.joint_limit_upper[dof_idx],
+            model.joint_limit_ke[dof_idx],
+            model.joint_limit_kd[dof_idx],
+        ],
+        0,
+    ).transpose(0, 2, 1)[..., None]  # (4,3,B,1)
+    cb = np.asarray(model.contact_body)
+    if (np.diff(cb) < 0).any():
+        raise ValueError("contacts must be body-sorted")
+
+    f = dict(
+        axis_c=model.joint_axis.T[:, :, None],
+        xp_t=xp_t,
+        xp_q=model.joint_X_p[:, 3:7].T[:, :, None],
+        xc_q=model.joint_X_c[:, 3:7].T[:, :, None],
+        com=model.body_com.T[:, :, None],
+        rp_local=xp_t - com_parent,
+        lim=lim,
+        cpt=model.contact_point.T[:, :, None],  # (3,C,1)
+        cdist=model.contact_dist[:, None],  # (C,1)
+        cmat=model.contact_material.T[:, :, None],  # (4,C,1) ke kd kf mu
+    )
+    out = {
+        k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float32, device=device)
+        for k, v in f.items()
+    }
+    i = dict(parent=parent, joint_type=jt, dof_idx=dof_idx, contact_body=cb)
+    out.update({
+        k: torch.as_tensor(np.ascontiguousarray(v, np.int32), device=device)
+        for k, v in i.items()
+    })
+    return out
+
+
+def pack_static(static: dict) -> dict:
+    """The kernel's packed constant buffers (see csrc/soa_window.cu):
+    ``body_i`` (B,5) int32 = parent, joint type, 3 dof indices;
+    ``body_f`` (B,32) f32 = axis, xp_t, xp_q, xc_q, com, rp_local, limit
+    lower/upper/ke/kd; ``cbody`` (C,) int32; ``cf`` (C,8) f32 = point,
+    dist, ke, kd, kf, mu."""
+    body_i = torch.cat(
+        [static["parent"][:, None], static["joint_type"][:, None], static["dof_idx"]], 1
+    )
+    body_f = torch.cat(
+        [static[n][..., 0] for n in ("axis_c", "xp_t", "xp_q", "xc_q", "com", "rp_local")]
+        + [static["lim"][..., 0].reshape(12, -1)],  # (4,3,B) lower, upper, ke, kd
+        0,
+    ).T
+    cf = torch.cat(
+        [static["cpt"][..., 0], static["cdist"].T, static["cmat"][..., 0]], 0
+    ).T
+    return dict(
+        body_i=body_i.contiguous(), body_f=body_f.contiguous(),
+        cbody=static["contact_body"].contiguous(), cf=cf.contiguous(),
+    )
+
+
+def traced_planes(model, params: SimParams) -> dict:
+    """Per-call parameters in plane layout (pallas_soa.py:349-389):
+    ``gains`` (2,3,B,1|E), ``inv_m`` (B,1|E), ``inertia`` and
+    ``inv_inertia`` (3,3,B,1|E). Shared params (``joint_target_ke``
+    (n_qd,)) give lane-1 planes, per-env params ((E, n_qd)) lane-E planes."""
+    didx = torch.as_tensor(dof_index(model), dtype=torch.long,
+                           device=params.joint_target_ke.device)
+    ke, kd = params.joint_target_ke, params.joint_target_kd
+    if ke.ndim == 1:
+        gains = torch.stack([ke[didx].T, kd[didx].T])[..., None]  # (2,3,B,1)
+    else:  # (E, n_qd)
+        gains = torch.stack([ke[:, didx].permute(2, 1, 0), kd[:, didx].permute(2, 1, 0)])
+    im = params.body_inv_mass
+    inv_m = im[:, None] if im.ndim == 1 else im.T  # (B,1) | (B,E)
+    if params.body_inertia.ndim == 3:
+        inertia = params.body_inertia.permute(1, 2, 0)[..., None]  # (3,3,B,1)
+        inv_inertia = params.body_inv_inertia.permute(1, 2, 0)[..., None]
+    else:  # (E,B,3,3)
+        inertia = params.body_inertia.permute(2, 3, 1, 0)  # (3,3,B,E)
+        inv_inertia = params.body_inv_inertia.permute(2, 3, 1, 0)
+    return {
+        n: t.to(torch.float32).contiguous()
+        for n, t in zip(TRACED_NAMES, (gains, inv_m, inertia, inv_inertia))
+    }
+
+
+def window_work(model, E: int, substeps: int, n_frames: int) -> dict:
+    """Bytes the window must move and fp32 operations it must do, for the
+    roofline bound of the kernel (each input read once, each output written
+    once; shared parameter planes, no acts, as serving calls it). Operation
+    counts per unit are counted by hand from csrc/soa_window.cu (an FMA
+    counts 2; sqrt, division, sin and cos count 1 each, a lower bound on
+    their cost)."""
+    B, C, n_qd = model.n_links, model.contact_count, model.n_qd
+    jt = model.joint_type
+    S = substeps * (n_frames - 1) + 1
+    f4 = 4
+    bytes_in = (13 * B * E + S * n_qd * E) * f4 + (
+        2 * 3 * B + B + 2 * 9 * B) * f4 + (B * (5 + 32) + C * 9) * f4
+    bytes_out = n_frames * (7 + 6 + 6 + 6) * B * E * f4
+    # per unit, from the source (qrot 30, qmul 28, cross 9, katan2 20):
+    # contact 128; joint frame (parent transform, errors, attach) 170;
+    # FIXED +76, REVOLUTE +133, COMPOUND +430; scatter 36; integrate 287
+    common, scatter, integ = 170, 36, 287
+    per_joint = {JOINT_FIXED: common + 76 + scatter,
+                 JOINT_REVOLUTE: common + 133 + scatter,
+                 JOINT_COMPOUND: common + 430 + scatter}
+    joints = sum(per_joint.get(int(t), 0) for t in jt)
+    per_substep = 128 * C + joints + integ * B
+    # the final row evaluates forces once more without integrating
+    ops = E * (S * per_substep - integ * B)
+    return dict(bytes=bytes_in + bytes_out, ops=ops, per_env_substep=per_substep)
+
+
+def _kernel_lib():
+    """The built soa_window library with its C signatures declared."""
+    lib = kbuild.load(KERNEL)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.soa_window_max_bodies.argtypes = []
+    lib.soa_window_max_bodies.restype = I
+    lib.soa_window_launch.argtypes = (
+        [P] * 8  # bq0 bqd0 tgt act body_i body_f cbody cf
+        + [P, I] * 4  # gains inv_m inertia inv_inertia, each with its per-env flag
+        + [P] * 4  # out_q out_qd out_grf out_jaf
+        + [I] * 6  # E B n_qd C F sub
+        + [Fl] * 7  # dt ang_decay gx gy gz attach_ke attach_kd
+        + [I, P]  # threads per block, stream
+    )
+    lib.soa_window_launch.restype = I
+    return lib
+
+
+class SoaWindow:
+    """Whole-window forward rollout (pallas_soa.py:1094-1269 build_soa_window).
+
+    ``run(state, joint_targets (S,E,n_qd), joint_acts (S,E,n_qd) or None,
+    params) -> (body_q (F,E,B,7), body_qd (F,E,B,6), grf (F,E,B,6),
+    jaf (F,E,B,6))`` with S = substeps*(F-1)+1. Rows 0..F-2 are the states
+    entering each interval and the grf/jaf of its first substep; row F-1 is
+    the final state with the last substep's observables. ``params`` is a
+    per-call input, so swapping a checkpoint needs no rebuild.
+
+    CPU tensors run the plain version (``integrator.rollout``); CUDA tensors
+    launch the kernel, counted in ``self.launches``."""
+
+    def __init__(self, integrator: SemiImplicitIntegrator, dt: float,
+                 substeps: int, n_frames: int):
+        self.integrator = integrator
+        self.model = integrator.model
+        self.dt = float(dt)
+        self.sub = int(substeps)
+        self.F = int(n_frames)
+        if self.F < 2 or self.sub < 1:
+            raise ValueError("need n_frames >= 2 and substeps >= 1")
+        self._packed = {}
+        self.launches = 0  # kernel launches of this wrapper
+
+    def __call__(self, state: SimState, joint_targets, joint_acts, params: SimParams):
+        dev = state.body_q.device
+        S = self.sub * (self.F - 1) + 1
+        if joint_targets.shape[0] != S:
+            raise ValueError(
+                "joint_targets has %d rows; the window needs %d" % (joint_targets.shape[0], S)
+            )
+        if dev.type == "cpu":
+            return rollout(self.integrator, params, state, joint_targets,
+                           joint_acts, None, self.dt, self.sub)
+        if dev.type != "cuda":
+            raise ValueError("SoaWindow runs on cpu or cuda tensors, not %s" % dev)
+        return self._launch(state, joint_targets, joint_acts, params)
+
+    def _consts(self, dev):
+        key = str(dev)
+        if key not in self._packed:
+            self._packed[key] = pack_static(soa_static(self.model, dev))
+        return self._packed[key]
+
+    def _launch(self, state, joint_targets, joint_acts, params):
+        model = self.model
+        dev = state.body_q.device
+        E, B = state.body_q.shape[0], model.n_links
+        n_qd, F = model.n_qd, self.F
+        lib = _kernel_lib()
+        max_b = lib.soa_window_max_bodies()
+        if B > max_b:
+            raise ValueError("soa_window supports at most %d bodies, got %d" % (max_b, B))
+        tensors = [state.body_q, state.body_qd, joint_targets]
+        if joint_acts is not None:
+            tensors.append(joint_acts)
+        for t in tensors:
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError("soa_window takes float32 tensors on %s" % dev)
+        if state.body_q.shape != (E, B, 7) or state.body_qd.shape != (E, B, 6):
+            raise ValueError("state must be (E,B,7)/(E,B,6), got %s/%s"
+                             % (tuple(state.body_q.shape), tuple(state.body_qd.shape)))
+        if joint_targets.shape[1:] != (E, n_qd) or (
+                joint_acts is not None and joint_acts.shape != joint_targets.shape):
+            raise ValueError("joint targets/acts must be (S, E, n_qd)")
+
+        # env-innermost layouts: a warp reads 32 consecutive floats
+        bq = state.body_q.permute(2, 1, 0).contiguous()  # (7,B,E)
+        bqd = state.body_qd.permute(2, 1, 0).contiguous()  # (6,B,E)
+        tgt = joint_targets.permute(0, 2, 1).contiguous()  # (S,n_qd,E)
+        act = None if joint_acts is None else joint_acts.permute(0, 2, 1).contiguous()
+        planes = traced_planes(model, params)
+        for n, p in planes.items():
+            if p.device != dev:
+                raise ValueError("parameter plane %s is not on %s" % (n, dev))
+            if p.shape[-1] not in (1, E):
+                raise ValueError("parameter plane %s has lane width %d, not 1 or E=%d"
+                                 % (n, p.shape[-1], E))
+        c = self._consts(dev)
+        out_q = torch.empty((F, 7, B, E), dtype=torch.float32, device=dev)
+        out_qd = torch.empty((F, 6, B, E), dtype=torch.float32, device=dev)
+        out_grf = torch.empty((F, 6, B, E), dtype=torch.float32, device=dev)
+        out_jaf = torch.empty((F, 6, B, E), dtype=torch.float32, device=dev)
+
+        ptr = lambda t: t.data_ptr() if t is not None else None
+        pe = lambda n: int(planes[n].shape[-1] == E and E > 1)
+        g = model.gravity
+        status = lib.soa_window_launch(
+            ptr(bq), ptr(bqd), ptr(tgt), ptr(act),
+            ptr(c["body_i"]), ptr(c["body_f"]), ptr(c["cbody"]), ptr(c["cf"]),
+            ptr(planes["gains"]), pe("gains"), ptr(planes["inv_m"]), pe("inv_m"),
+            ptr(planes["inertia"]), pe("inertia"),
+            ptr(planes["inv_inertia"]), pe("inv_inertia"),
+            ptr(out_q), ptr(out_qd), ptr(out_grf), ptr(out_jaf),
+            E, B, n_qd, model.contact_count, F, self.sub,
+            self.dt, 1.0 - 0.1 * self.dt, float(g[0]), float(g[1]), float(g[2]),
+            float(model.joint_attach_ke), float(model.joint_attach_kd),
+            THREADS_PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        kbuild.check(status, KERNEL)
+        self.launches += 1
+        aos = lambda x: x.permute(0, 3, 2, 1).contiguous()  # (F,·,B,E) -> (F,E,B,·)
+        return aos(out_q), aos(out_qd), aos(out_grf), aos(out_jaf)
