@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero):
  1. device: torch's device name, and name + power limit from nvidia-smi;
- 2. build: every CUDA kernel of the serving path with nvcc (sm_90a), timed;
+ 2. build: every CUDA kernel (soa_window, soa_interval) with nvcc (sm_90a),
+    one nvcc per source, all started together, timed, with ptxas' registers,
+    stack and spills;
  3. kernel vs plain: the soa_window kernel against its plain PyTorch
     version (sim/integrator.rollout) on the card, on a1 and on the
     FIXED/COMPOUND/REVOLUTE chain, with shared and per-env parameter
@@ -16,7 +18,24 @@ Phases (any failure exits non-zero):
     the launch counts set to 0 just before and read just after; then the
     kernel held against the plain version on the main path's own inputs,
     each timed with CUDA events;
- 5. a ``kernels`` JSON line, the nvidia-smi line, and as the last line
+ 5. interval kernels vs plain: K2 (soa_interval_fwd) values and K3
+    (soa_interval_bwd + its env reduction) gradients against the plain
+    interval with autograd, on a1 and the chain, shared and per-env planes,
+    with and without acts, E=256, 33 substeps, penetrating contacts, for the
+    loss sum(w * outputs) with seeded weights: K3 on the plain forward's own
+    substep states, every env, and end to end; and K2 chained over a window
+    against K1, bit for bit;
+ 6. training main path: the port's phys_model on a1 with the committed clip,
+    num_envs=512, frames_per_wdw=24, default loss weights and noise_std:
+    one warm-up and 3 timed forward()+update() steps, with the launch counts
+    set to 0 just before and read just after (one K2, K3 and reduction per
+    interval and step); the peak device memory; 2 more steps under
+    torch.profiler (device busy share, time by kernel); then K2 and K3 timed
+    alone on the main path's own first-interval inputs and held against the
+    plain interval with autograd there; last the training loop's
+    full-sequence eval (1 env, K1, no gradient), its launch count read, and
+    K1 held against the plain rollout on that eval's inputs;
+ 7. a ``kernels`` JSON line, the nvidia-smi line, and as the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX. Without a GPU, or run from a directory that
@@ -36,6 +55,7 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
 E_MAIN, F_MAIN, SEED = 4096, 24, 0
 E_CHECK, F_CHECK = 256, 4
+E_TRAIN, F_TRAIN = 512, 24
 
 # Kernel vs plain tolerances (absolute). Both run fp32 on the card; the
 # kernel contracts multiply-adds into FMAs and sums in another order, so the
@@ -47,6 +67,34 @@ E_CHECK, F_CHECK = 256, 4
 # ke * (q error)). Phase 3 runs 99 substeps, the main path 759.
 TOL_CHECK = dict(q=1e-5, qd=5e-3, grf=0.1, jaf=0.5)
 TOL_MAIN = dict(q=1e-4, qd=2e-2, grf=1.0, jaf=3.0)
+# Interval kernels vs plain, one interval of 33 substeps: values as above.
+# Gradients are errors max|kernel - plain| over max|plain| of that gradient,
+# and are checked twice:
+# (a) K3 at the plain forward's linearization point: the plain interval's
+#     own substep entry states (its export) feed K3, so both differentiate
+#     the same trajectory. The planes get one lane per env, so that K3's
+#     per-env plane partials are compared too: every entry of every
+#     gradient, in every env, within TOL_GRAD. For shared planes, K3's
+#     fixed-order env reduction is held to the float64 sum of those
+#     partials within twice the bound of recursive fp32 summation,
+#     (E-1) 2^-24 sum|partial|. Gradients without an env axis (shared ke,
+#     kd, mass) within TOL_GRAD_SUM.
+# (b) End to end, autograd through K2+K3 against autograd of the plain
+#     interval: each differentiates its own forward, and the two forwards
+#     differ by FMA rounding (~1e-7 in the state). Where that carries an env
+#     across a contact kink (the friction cone's min, the penetration sign),
+#     that env's adjoint jumps. So per env within TOL_GRAD_ENV except for at
+#     most TOL_GRAD_ENVS of the envs, every entry within TOL_GRAD_REL, and
+#     gradients without an env axis within TOL_GRAD_SUM. Measured for (b) on
+#     an H100 80GB HBM3 at 700 W (this script): 1e-6 to 1.8e-5 in every env
+#     but one env in each of two of the eight phase-5 configurations
+#     (1.9e-2 there), and up to 3.5e-4 for the env sums of phase 6.
+TOL_INTERVAL = dict(q=1e-5, qd=5e-3)
+TOL_GRAD = 1e-4
+TOL_GRAD_SUM = 1e-3
+TOL_GRAD_ENV = 1e-3
+TOL_GRAD_ENVS = 0.02
+TOL_GRAD_REL = 0.1
 
 
 def log(*a):
@@ -82,6 +130,53 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def profile_steps(step, n, E, F):
+    """Profile n calls of step() with torch.profiler and print where the
+    device time goes: wall per step on the host clock, the device busy share
+    (summed kernel time over the wall; one stream, so kernels do not
+    overlap), the device time of the interval kernels, the window kernel,
+    matrix products and everything else, and the kernels that take most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    # device-side events only (the kernels): host ops also carry the device
+    # time of the kernels they launched, and a region annotated on the
+    # device timeline (the optimizer step) spans kernels counted already
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(e, "is_user_annotation", False):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / n / 1e3, e.count // n, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        log("  profiler: no device time recorded; device busy share not measured")
+        return
+    group = lambda pred: sum(r[0] for r in rows if pred(r[2].lower()))
+    interval = group(lambda k: "soa_interval" in k)
+    window = group(lambda k: "soa_window" in k)
+    mm = group(lambda k: "gemm" in k or "sgemm" in k or "cutlass" in k or "matmul" in k)
+    log("  profiled train step (%d envs x %d frames, %d steps): wall %.3f ms, device busy "
+        "%.3f ms (%.1f%%), idle %.1f%%; interval kernels %.3f ms, window kernel %.3f ms, "
+        "matrix products %.3f ms, other kernels %.3f ms; %d kernel launches per step"
+        % (E, F, n, wall_ms, busy, 100 * busy / wall_ms, 100 - 100 * busy / wall_ms,
+           interval, window, mm, busy - interval - window - mm, sum(r[1] for r in rows)))
+    log("  top kernels (ms per step, launches per step, name):")
+    for ms, c, k in rows[:12]:
+        log("    %9.3f %6d  %s" % (ms, c, k[:100]))
+
+
 def max_errs(a, b):
     return {k: float((x - y).abs().max()) for k, x, y in zip(("q", "qd", "grf", "jaf"), a, b)}
 
@@ -91,6 +186,153 @@ def check_errs(label, errs, tol):
     for k, v in errs.items():
         if not np.isfinite(v) or v > tol[k]:
             fail("%s: %s error %.3g exceeds %.3g" % (label, k, v, tol[k]))
+
+
+def param_planes(model, params):
+    """Leaves ke, kd and mass, and the four traced planes built from them
+    (inertia keeps its normalized shape), differentiable back to the
+    leaves."""
+    import torch
+    from ppr_diffphys_torch.sim import integrator as tint
+    from ppr_diffphys_torch.sim import soa
+
+    ke = params.joint_target_ke.clone().requires_grad_()
+    kd = params.joint_target_kd.clone().requires_grad_()
+    mass = params.body_mass.clone().requires_grad_()
+    norm_I = params.body_inertia / params.body_mass[..., None, None]
+    I = norm_I * mass[..., None, None]
+    p = tint.SimParams(mass, 1.0 / mass, I, torch.linalg.inv(I), ke, kd)
+    planes = soa.traced_planes(model, p)
+    return {"ke": ke, "kd": kd, "mass": mass}, [planes[n] for n in soa.TRACED_NAMES]
+
+
+def state_names(act):
+    return ["bq0", "bqd0", "tgt"] + (["act"] if act is not None else [])
+
+
+def interval_grads(fn, bq, bqd, tgt, act, leaves, pl, w):
+    """Values and gradients of sum(w * outputs) of one interval: fn(bq,
+    bqd, tgt, act, res=None, *planes). Gradients with respect to bq, bqd,
+    tgt, act (when given), the planes ``pl``, and through them ``leaves``."""
+    import torch
+    from ppr_diffphys_torch.sim import soa
+
+    pl_leaf = [x.detach().clone().requires_grad_() for x in pl]
+    ins = [x.clone().requires_grad_() for x in (bq, bqd, tgt) + (
+        (act,) if act is not None else ())]
+    q, qd = fn(ins[0], ins[1], ins[2], ins[3] if act is not None else None, None, *pl_leaf)
+    loss = (q * w[0]).sum() + (qd * w[1]).sum()
+    g = torch.autograd.grad(loss, ins + pl_leaf)
+    g_par = torch.autograd.grad(pl, list(leaves.values()), g[len(ins):]) if leaves else ()
+    names = state_names(act) + list(soa.TRACED_NAMES) + list(leaves)
+    return q.detach(), qd.detach(), dict(zip(names, list(g) + list(g_par)))
+
+
+def linearized_grads(label, di, bq, bqd, tgt, act, leaves, pl, w):
+    """Check (a)'s gradients: autograd of the plain interval, and K3 fed the
+    plain forward's own substep entry states, with every plane widened to
+    one lane per env. For shared planes, also K3 with the lane-1 planes
+    (its env reduction), held to the float64 sum of the per-env partials;
+    ``leaves`` get their gradients from the reduced planes."""
+    import torch
+    from ppr_diffphys_torch.sim import integrator as tint
+    from ppr_diffphys_torch.sim import soa
+
+    E = bq.shape[-1]
+    wide = [p.detach().expand(*p.shape[:-1], E).contiguous().requires_grad_() for p in pl]
+    ins = [x.clone().requires_grad_() for x in (bq, bqd, tgt) + (
+        (act,) if act is not None else ())]
+    q, qd, sst = tint.interval(di.integrator, di.dt, ins[0], ins[1], ins[2],
+                               ins[3] if act is not None else None, None, *wide, export=True)
+    gp = torch.autograd.grad((q * w[0]).sum() + (qd * w[1]).sum(), ins + wide)
+    dbq, dbqd, dtgt, dact, _, dwide = di._backward(
+        sst, tgt, act, None, [x.detach() for x in wide], w[0], w[1])
+    names = state_names(act) + list(soa.TRACED_NAMES)
+    got = [dbq, dbqd, dtgt] + ([dact] if act is not None else []) + list(dwide)
+    ref, got = dict(zip(names, gp)), dict(zip(names, got))
+    shared = [p.shape[-1] == 1 for p in pl]
+    dplanes = list(dwide)
+    if any(shared):
+        reduced = di._backward(sst, tgt, act, None, [p.detach() for p in pl], w[0], w[1])[5]
+        for n, sh, s, g in zip(soa.TRACED_NAMES, shared, reduced, dwide):
+            if not sh:
+                continue
+            g64 = g.double()
+            bound = 2 * (E - 1) * 2.0 ** -24 * g64.abs().sum(-1, keepdim=True)
+            excess = float(((s.double() - g64.sum(-1, keepdim=True)).abs() - bound).max())
+            if not np.isfinite(excess) or excess > 0:
+                fail("%s: K3's env reduction of %s is off the float64 sum of its "
+                     "per-env partials by %.3g beyond the fp32 summation bound"
+                     % (label, n, excess))
+        dplanes = [s if sh else g for s, sh, g in zip(reduced, shared, dwide)]
+    if leaves:
+        fold = [g.sum(-1, keepdim=True) if sh else g for g, sh in zip(gp[len(ins):], shared)]
+        ref.update(zip(leaves, torch.autograd.grad(pl, list(leaves.values()), fold,
+                                                   retain_graph=True)))
+        got.update(zip(leaves, torch.autograd.grad(pl, list(leaves.values()), dplanes)))
+    return ref, got
+
+
+def grad_errors(ref, got, E):
+    """{name: (max|got - ref| / max|ref| over every entry, the same per env
+    (a tensor of E), or None for a gradient without an env axis: a shared
+    parameter, summed over the envs)}."""
+    import torch
+
+    out = {}
+    for n, a in ref.items():
+        b = got[n]
+        if not bool(torch.isfinite(b).all()):
+            fail("non-finite kernel gradient " + n)
+        d = (a - b).abs() / (float(a.abs().max()) + 1e-30)
+        per_env = None
+        if a.ndim > 1 and a.shape[-1] == E:
+            per_env = d.reshape(-1, E).amax(0)
+        elif a.ndim > 1 and a.shape[0] == E:  # per-env ke/kd/mass (E, .)
+            per_env = d.reshape(E, -1).amax(1)
+        out[n] = (float(d.max()), per_env)
+    return out
+
+
+def check_grads(label, gerr, E, linearized):
+    """Check (a) when ``linearized``, else check (b) (see the tolerances)."""
+    env_tol = TOL_GRAD if linearized else TOL_GRAD_ENV
+    shown = {k: [float("%.3g" % v), None if pe is None else int((pe > env_tol).sum())]
+             for k, (v, pe) in gerr.items()}
+    log("  %s K3 grads %s (max|kernel-plain|/max|plain|, envs beyond %g): %s"
+        % (label, "at the plain linearization" if linearized else "end to end", env_tol,
+           json.dumps(shown)))
+    for k, (v, pe) in gerr.items():
+        if pe is None:
+            ok = v <= TOL_GRAD_SUM
+        elif linearized:
+            ok = v <= TOL_GRAD
+        else:
+            ok = v <= TOL_GRAD_REL and int((pe > TOL_GRAD_ENV).sum()) <= TOL_GRAD_ENVS * E
+        if not (np.isfinite(v) and ok):
+            fail("%s: gradient %s error %.3g (%s envs beyond %g) exceeds tolerance"
+                 % (label, k, v, shown[k][1], env_tol))
+
+
+def record_first_call(obj, method, box):
+    """Wrap ``obj.method`` on this instance only: keep a detached copy of
+    the arguments of its first call in ``box``. ``del obj.<method>``
+    restores the class's."""
+    inner = getattr(obj, method)
+
+    def copy(a):
+        if hasattr(a, "_fields"):  # SimState, SimParams
+            return type(a)(*(copy(x) for x in a))
+        if isinstance(a, (tuple, list)):
+            return type(a)(copy(x) for x in a)
+        return a.detach().clone() if hasattr(a, "detach") else a
+
+    def wrapped(*args):
+        if not box:
+            box.extend(copy(a) for a in args)
+        return inner(*args)
+
+    setattr(obj, method, wrapped)
 
 
 def main():
@@ -106,7 +348,9 @@ def main():
         fail("the ppr_diffphys_torch package is not beside this script (%s)" % e)
     from ppr_diffphys_torch.models.serve import RolloutServer
     from ppr_diffphys_torch.sim import integrator as tint
-    from ppr_diffphys_torch.sim import soa, synthetic
+    from ppr_diffphys_torch.models.phys_model import phys_model
+    from ppr_diffphys_torch.data.amp_loader import DataLoader
+    from ppr_diffphys_torch.sim import soa, soa_grad, synthetic
     from ppr_diffphys_torch.sim.builder import ModelBuilder
     from ppr_diffphys_torch.sim.import_urdf import parse_urdf
     from ppr_diffphys_torch.sim.kinematics import eval_fk
@@ -124,11 +368,12 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.time()
-    logs = kbuild.build([soa.KERNEL], ptxas_verbose=True)
+    logs = kbuild.build([soa.KERNEL, soa_grad.KERNEL], ptxas_verbose=True)
     log("phase 2 build: %.1f s" % (time.time() - t0))
     for name, text in logs.items():
         for line in text.strip().splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if ("registers" in line or "spill" in line or "stack frame" in line
+                    or "Compiling entry" in line):
                 log("  %s ptxas: %s" % (name, line.strip()))
 
     # ---- 3. kernel vs plain on the card ------------------------------------
@@ -237,9 +482,222 @@ def main():
         "(%d bytes -> %.4f ms, %d fp32 ops (%d per env-substep) -> %.4f ms)"
         % (prologue_ms, kern_ms, plain_ms, bound_ms, work["bytes"], t_bytes * 1e3,
            work["ops"], work["per_env_substep"], t_ops * 1e3))
+
+    # ---- 5. interval kernels vs plain on the card ----------------------------
+    t0 = time.time()
+    S_i = sub
+    for mname, model in (("a1", a1), ("chain", synthetic.chain_model())):
+        q, qd, tgt, act = synthetic.window_problem(model, E_CHECK, sub, 2, seed=SEED + 1)
+        bq, bqd = eval_fk(model, torch.as_tensor(q), torch.as_tensor(qd))
+        bq = synthetic.grounded(model, bq.numpy(), seed=SEED + 1)
+        state = tint.SimState(torch.as_tensor(bq, device=dev), bqd.to(dev))
+        with torch.no_grad():
+            cforce = tint.eval_body_contacts(model, tint.default_sim_params(model, dev), state)
+        if float(cforce[..., 3:].abs().max()) < 1.0:
+            fail("phase 5 %s: no contact force: the check is vacuous" % mname)
+        integ = tint.SemiImplicitIntegrator(model)
+        rng = np.random.RandomState(SEED + 3)
+        B = model.n_links
+        w = (torch.as_tensor(rng.randn(7, B, E_CHECK).astype(np.float32), device=dev),
+             torch.as_tensor(rng.randn(6, B, E_CHECK).astype(np.float32), device=dev))
+        bq_p = state.body_q.permute(2, 1, 0).contiguous()
+        bqd_p = state.body_qd.permute(2, 1, 0).contiguous()
+        tgt_p = torch.as_tensor(tgt[:S_i], device=dev).permute(0, 2, 1).contiguous()
+        act_p = torch.as_tensor(act[:S_i], device=dev).permute(0, 2, 1).contiguous()
+        for planes in ("shared", "per_env"):
+            ke, kd, mass, norm_I = synthetic.sim_params_np(
+                model, E_CHECK if planes == "per_env" else None, seed=SEED)
+            t = lambda x: torch.as_tensor(x, device=dev)
+            I = t(norm_I) * t(mass)[..., None, None]
+            params = tint.SimParams(t(mass), 1.0 / t(mass), I, torch.linalg.inv(I),
+                                    t(ke), t(kd))
+            for acts in (act_p, None):
+                di = soa_grad.DiffInterval(integ, m.dt, S_i, with_act=acts is not None)
+                qk, qdk, gk = interval_grads(di, bq_p, bqd_p, tgt_p, acts,
+                                             *param_planes(model, params), w)
+                qp, qdp, gp = interval_grads(
+                    lambda *a: tint.interval(integ, m.dt, *a),
+                    bq_p, bqd_p, tgt_p, acts, *param_planes(model, params), w)
+                torch.cuda.synchronize()
+                label = "phase 5 %s/%s/%s" % (mname, planes, "act" if acts is not None else "no-act")
+                verr = {"q": float((qk - qp).abs().max()), "qd": float((qdk - qdp).abs().max())}
+                check_errs(label + " K2 values", verr, TOL_INTERVAL)
+                want = {"fwd": 1, "bwd": 1, "reduce": 0 if planes == "per_env" else 1}
+                got = {k: di.launches["soa_interval_" + k] for k in want}
+                if got != want:
+                    fail("%s: launches %s, expected %s" % (label, got, want))
+                ref, got = linearized_grads(label, di, bq_p, bqd_p, tgt_p, acts,
+                                            *param_planes(model, params), w)
+                check_grads(label, grad_errors(ref, got, E_CHECK), E_CHECK, linearized=True)
+                check_grads(label, grad_errors(gp, gk, E_CHECK), E_CHECK, linearized=False)
+    # K2 chained over a window reproduces K1 bit for bit (both run substep.cuh)
+    q, qd, tgt, _ = synthetic.window_problem(a1, E_CHECK, sub, F_CHECK, seed=SEED)
+    bq, bqd = eval_fk(a1, torch.as_tensor(q), torch.as_tensor(qd))
+    bq = synthetic.grounded(a1, bq.numpy(), seed=SEED)
+    state = tint.SimState(torch.as_tensor(bq, device=dev), bqd.to(dev))
+    tgt = torch.as_tensor(tgt, device=dev)
+    integ = tint.SemiImplicitIntegrator(a1)
+    params = tint.default_sim_params(a1, dev)
+    win = soa.SoaWindow(integ, m.dt, sub, F_CHECK)(state, tgt, None, params)
+    di = soa_grad.DiffInterval(integ, m.dt, sub)
+    pl = soa.traced_planes(a1, params)
+    x, xd = state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0)
+    tp = tgt.permute(0, 2, 1).contiguous()
+    with torch.no_grad():
+        for f in range(F_CHECK - 1):
+            x, xd = di(x, xd, tp[f * sub:(f + 1) * sub], None, None,
+                       *(pl[n] for n in soa.TRACED_NAMES))
+            if not (torch.equal(x.permute(2, 1, 0), win[0][f + 1])
+                    and torch.equal(xd.permute(2, 1, 0), win[1][f + 1])):
+                fail("phase 5: K2 chained differs from K1 at frame %d" % (f + 1))
+    log("  phase 5 K2 chained over %d intervals == K1 frame states, bit for bit" % (F_CHECK - 1))
+    log("phase 5 interval kernels vs plain: ok (%.1f s)" % (time.time() - t0))
+
+    # ---- 6. the training main path -------------------------------------------
+    t0 = time.time()
+    topts = build_opts(
+        seqname="a1-synth", urdf_template="a1",
+        datadir=os.path.join(REPO, "tests", "fixtures", "motion_sequences"),
+        urdf_dir=os.path.join(REPO, "tests", "fixtures"), seed=SEED,
+        logroot=os.path.join(REPO, "logdir", "chip_smoke"),
+    )
+    tm = phys_model(topts, DataLoader(topts), device="cuda")
+    tm.reinit_envs(E_TRAIN, frames_per_wdw=F_TRAIN, is_eval=False)
+    di = tm._interval()
+    first = []
+    record_first_call(di, "_forward", first)
+    log("phase 6 model built: %.1f s; noise_std %g, loss weights %s"
+        % (time.time() - t0, tm.noise_std, tm._weights_vec()))
+
+    def train_step():
+        out = tm.forward()
+        gd = tm.update()
+        torch.cuda.synchronize()
+        return out, gd
+
+    train_step()  # warm-up (records the first interval's inputs)
+    del di._forward
+    if not first:
+        fail("phase 6: the training step never called the interval kernels' wrapper")
+    before = [t.detach().clone() for _, t in tm._trainable]
+    for k in di.launches:
+        di.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    steps = []
+    for i in range(3):
+        t1 = time.perf_counter()
+        out, gd = train_step()
+        wall = time.perf_counter() - t1
+        losses = {k: float(v) for k, v in out.items()}
+        gnorm = float(np.sqrt(sum(v * v for k, v in gd.items() if k.startswith("grad/"))))
+        log("  step %d: wall %.3f ms, losses %s, grad norm %s"
+            % (i, wall * 1e3, json.dumps(losses), "%.6g" % gnorm if gd else "rolled back"))
+        if not all(np.isfinite(v) for v in losses.values()) or not np.isfinite(gnorm):
+            fail("phase 6: non-finite loss or gradient")
+        steps.append(wall)
+    train_launches = dict(di.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    changed = sum(int(not torch.equal(b, t)) for b, (_, t) in zip(before, tm._trainable))
+    log("phase 6 launches during the main path: %s" % json.dumps(train_launches))
+    n_int = F_TRAIN - 1
+    log("phase 6 train step wall ms (3 steps): %s; median %.3f ms; peak device memory "
+        "%.3f GB; %d of %d parameter tensors changed"
+        % ([round(x * 1e3, 3) for x in steps], float(np.median(steps)) * 1e3, peak_gb,
+           changed, len(before)))
+    bq0, bqd0, tgt0, act0, res0, planes0 = first[:6]
+    shared = all(p.shape[-1] == 1 for p in planes0)
+    want = {soa_grad.KERNEL_FWD: 3 * n_int, soa_grad.KERNEL_BWD: 3 * n_int,
+            soa_grad.KERNEL_REDUCE: 3 * n_int if shared else 0}
+    for k in (soa_grad.KERNEL_FWD, soa_grad.KERNEL_BWD):
+        if train_launches[k] < 1:
+            fail("the training main path never launched %s" % k)
+    if train_launches != want:
+        fail("phase 6: launches %s, expected %s (one of each per interval and step)"
+             % (json.dumps(train_launches), json.dumps(want)))
+    if changed == 0:
+        fail("phase 6: no parameter changed over 3 training steps")
+    if act0 is not None or res0 is not None:
+        fail("phase 6: the training interval got acts or residual forces")
+
+    # where a step's device time goes, by torch.profiler over 2 more steps
+    profile_steps(train_step, 2, E_TRAIN, F_TRAIN)
+
+    # K2 and K3 alone on the main path's first-interval inputs, vs plain
+    rng = np.random.RandomState(SEED + 4)
+    B = tm.n_links
+    dq = torch.as_tensor(rng.randn(7, B, E_TRAIN).astype(np.float32), device=dev)
+    dqd = torch.as_tensor(rng.randn(6, B, E_TRAIN).astype(np.float32), device=dev)
+    k2_ms, (kq, kqd, sstate) = cuda_time_ms(
+        lambda: di._forward(bq0, bqd0, tgt0, None, None, planes0, True), 10)
+    k3_ms, kg = cuda_time_ms(
+        lambda: di._backward(sstate, tgt0, None, None, planes0, dq, dqd), 3)
+
+    def plain_fwd():
+        ins = [bq0.clone().requires_grad_(), bqd0.clone().requires_grad_(),
+               tgt0.clone().requires_grad_()] + [x.clone().requires_grad_() for x in planes0]
+        return ins, tint.interval(di.integrator, di.dt, ins[0], ins[1], ins[2], None, None,
+                                  *ins[3:])
+
+    p2_ms, (pins, (pq, pqd)) = cuda_time_ms(plain_fwd, 1)
+    p3_ms, pg = cuda_time_ms(
+        lambda: torch.autograd.grad((pq, pqd), pins, (dq, dqd), retain_graph=True), 1)
+    label = "phase 6 main-path interval"
+    k2_err = {"q": float((kq - pq.detach()).abs().max()),
+              "qd": float((kqd - pqd.detach()).abs().max())}
+    check_errs(label + " K2 values", k2_err, TOL_INTERVAL)
+    names = state_names(None) + list(soa.TRACED_NAMES)
+    ref, got = linearized_grads(label, di, bq0, bqd0, tgt0, None, {}, list(planes0), (dq, dqd))
+    check_grads(label, grad_errors(ref, got, E_TRAIN), E_TRAIN, linearized=True)
+    k3_abs = float((got["tgt"] - ref["tgt"]).abs().max())
+    check_grads(label, grad_errors(dict(zip(names, pg)), dict(zip(names, list(kg[:3]) + list(kg[5]))),
+                                   E_TRAIN), E_TRAIN, linearized=False)
+    del pins, pq, pqd, pg, ref, got
+    n_act = soa_grad.active_contacts(tm.env, sstate)
+    iw = soa_grad.interval_work(tm.env, E_TRAIN, sub, n_active_contacts=n_act)
+    k2_t = (iw["fwd_bytes"] / H100_BYTES_PER_S, iw["fwd_ops"] / H100_FP32_OPS_PER_S)
+    k3_t = (iw["bwd_bytes"] / H100_BYTES_PER_S, iw["bwd_ops"] / H100_FP32_OPS_PER_S)
+    k2_bound, k3_bound = max(k2_t) * 1e3, max(k3_t) * 1e3
+    step_ms = float(np.median(steps)) * 1e3
+    log("phase 6 interval times (E=%d, %d substeps, first interval of the main path): "
+        "K2 %.3f ms (bound %.4f ms: bytes %.4f, ops %.4f), plain forward %.1f ms; "
+        "K3 incl. reduce %.3f ms (bound %.4f ms: bytes %.4f, ops %.4f; %d active "
+        "contact-substeps of %d), plain backward %.1f ms; per step %d+%d launches -> "
+        "K2 %.1f%% and K3 %.1f%% of the median step"
+        % (E_TRAIN, sub, k2_ms, k2_bound, k2_t[0] * 1e3, k2_t[1] * 1e3, p2_ms, k3_ms,
+           k3_bound, k3_t[0] * 1e3, k3_t[1] * 1e3, n_act, E_TRAIN * sub * tm.env.contact_count,
+           p3_ms, n_int, n_int, 100 * n_int * k2_ms / step_ms, 100 * n_int * k3_ms / step_ms))
+
+    # the training loop's full-sequence eval (ppr_diffphys_torch/main.py):
+    # no gradient, the whole window on K1, held against the plain rollout
+    tm.reinit_envs(1, frames_per_wdw=tm.total_frames, is_eval=True)
+    win = tm._window(tm.frames_per_wdw)
+    wargs = []
+    record_first_call(win, "_launch", wargs)
+    win.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = tm.forward()
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t1) * 1e3
+    eval_launches = win.launches
+    del win._launch
+    log("phase 6 eval (1 env x %d frames): %.3f ms, loss_traj %.6g, launches %s"
+        % (tm.frames_per_wdw, eval_ms, float(ev["loss_traj"]),
+           json.dumps({soa.KERNEL: eval_launches})))
+    if eval_launches != 1 or not wargs:
+        fail("phase 6 eval launched %s %d times, 1 expected" % (soa.KERNEL, eval_launches))
+    if not all(np.isfinite(float(v)) for v in ev.values()):
+        fail("phase 6 eval: non-finite loss")
+    with torch.no_grad():
+        kout = win(*wargs)
+        pout = tint.rollout(win.integrator, wargs[3], wargs[0], wargs[1], wargs[2], None,
+                            tm.dt, sub)
+    check_errs("phase 6 eval window", max_errs(kout, pout), TOL_MAIN)
     log("total %.1f s" % (time.time() - t_all))
 
-    # ---- 5. results ------------------------------------------------------------
+    # ---- 7. results ------------------------------------------------------------
+    by = lambda t: "operations" if t[1] >= t[0] else "bytes"
     kernels = [{
         "name": soa.KERNEL,
         "route": "cuda",
@@ -251,6 +709,32 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }, {
+        "name": soa_grad.KERNEL_FWD,
+        "route": "cuda",
+        "source": "ppr_diffphys_torch/csrc/soa_interval.cu",
+        "replaces": "ppr_diffphys_tpu/sim/pallas_soa_grad.py:473",
+        "launches": int(train_launches[soa_grad.KERNEL_FWD]),
+        "max_abs_err": k2_err["q"],
+        "ms": k2_ms,
+        "plain_ms": p2_ms,
+        "bound_ms": k2_bound,
+        "bound_by": by(k2_t),
+        "library_ms": None,
+    }, {
+        # K3's row counts its launches together with the env reduction's
+        "name": soa_grad.KERNEL_BWD,
+        "route": "cuda",
+        "source": "ppr_diffphys_torch/csrc/soa_interval.cu",
+        "replaces": "ppr_diffphys_tpu/sim/pallas_soa_grad.py:526",
+        "launches": int(train_launches[soa_grad.KERNEL_BWD]
+                        + train_launches[soa_grad.KERNEL_REDUCE]),
+        "max_abs_err": k3_abs,
+        "ms": k3_ms,
+        "plain_ms": p3_ms,
+        "bound_ms": k3_bound,
+        "bound_by": by(k3_t),
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C entry point. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``ppr_diffphys_torch/build/`` (listed
 in ``.gitignore``) at first use and loaded with ``ctypes``. The library
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded. No PyTorch headers are
+file name carries a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source or header is rebuilt and a stale library
+is never loaded. No PyTorch headers are
 included, which keeps a build to seconds.
 
 ``--use_fast_math`` is deliberately absent: it turns on approximate
@@ -44,7 +45,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    # the source, every shared header it may include, and the flags
     src = (SRC_DIR / (name + ".cu")).read_bytes()
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / ("lib%s-%s.so" % (name, h))
 

@@ -1,0 +1,720 @@
+// Training interval kernels: one frame interval of S substeps per env,
+// forward (K2) and backward (K3), for the differentiable rollout.
+//
+// Replaces the TPU kernels of ppr_diffphys_tpu/sim/pallas_soa_grad.py:
+// make_diff_interval, forward `fwd_call` (:453-481, kernel :211-252,
+// pallas_call :473) and backward `bwd_call` (:483-535, kernel :255-407,
+// pallas_call :526), the pair under its custom_vjp (:537-565).
+//
+// - K2 `soa_interval_fwd` runs the S substeps of substep.cuh on (bq, bqd).
+//   When the caller needs gradients it also writes the state entering each
+//   substep to a (S, 13, B, E) buffer (the TPU kernel's `with_sr` export);
+//   a primal-only call passes no buffer and writes nothing there.
+// - K3 `soa_interval_bwd` sweeps j = S-1 .. 0: it reads the state entering
+//   substep j, recomputes that substep's contact and joint forces in the
+//   thread's local memory, and applies the hand-derived adjoint of
+//   integrate -> joints -> contacts (the TPU kernel gets it from an
+//   in-kernel jax.vjp). It writes d(state0), dtgt[j] (+ dact[j], dres[j])
+//   and per-env partial gradients of the 25 parameter-plane rows per body.
+// - `soa_interval_reduce` sums those partials over envs in a fixed order
+//   (one thread per row, envs in ascending order) for the shared (lane-1)
+//   planes: deterministic, no atomics. The TPU kernel does this sum in its
+//   own body (pallas_soa_grad.py:399-407).
+//
+// Ties at kinks (min/max/clamp at equality, |x| at 0) are measure-zero:
+// clamps pass the gradient on the closed range, fminf(a, b) sends it to a
+// when a < b and to b otherwise, |x| has derivative sign(x) with sign(0)=0.
+//
+// What bounds it on an H100: operations, like K1 (~10^4 fp32 operations
+// per env-substep forward, ~3x that backward, on ~10^2 bytes per substep
+// of targets and exported state). The design is K1's: one thread per env,
+// the whole articulation state and its adjoint in local memory, env
+// innermost in every array. At training widths (512 envs) that occupies
+// 16 warps of the card: latency-bound, and left to a later change.
+
+#include "substep.cuh"
+
+#define N_PLANE_ROWS 25  // gains: ke 0-2, kd 3-5; inv_m 6; inertia 7-15; inv_inertia 16-24
+#define PR_INV_M 6
+#define PR_INERTIA 7
+#define PR_INV_INERTIA 16
+
+namespace {
+
+struct BwdArgs {
+  const float* __restrict__ sstate;  // (S, 13, B, E) state entering each substep
+  const float* __restrict__ dq;      // (7, B, E) cotangent of the final bq
+  const float* __restrict__ dqd;     // (6, B, E)
+  float* __restrict__ dbq0;          // (7, B, E)
+  float* __restrict__ dbqd0;         // (6, B, E)
+  float* __restrict__ dtgt;          // (S, n_qd, E)
+  float* __restrict__ dact;          // (S, n_qd, E) or null
+  float* __restrict__ dres;          // (S, 6, B, E) or null
+  float* __restrict__ dplanes;       // (N_PLANE_ROWS, B, E) per-env partials
+  int S;
+};
+
+// ---- adjoint helpers: each adds the cotangents of its inputs ------------
+__device__ __forceinline__ void acc(V3& a, V3 b) { a.x += b.x; a.y += b.y; a.z += b.z; }
+__device__ __forceinline__ void acc(Q4& a, Q4 b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ float dot4(Q4 a, Q4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+__device__ __forceinline__ float sgnf(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+// cotangent through clampf(x, -lim, lim), per component
+__device__ __forceinline__ V3 gate3(V3 g, V3 x, float lim) {
+  return {(x.x >= -lim && x.x <= lim) ? g.x : 0.0f,
+          (x.y >= -lim && x.y <= lim) ? g.y : 0.0f,
+          (x.z >= -lim && x.z <= lim) ? g.z : 0.0f};
+}
+
+// c = cross(a, b): da += b x g, db += g x a
+__device__ __forceinline__ void cross_adj(V3 a, V3 b, V3 g, V3& da, V3& db) {
+  acc(da, cross(b, g));
+  acc(db, cross(g, a));
+}
+
+// out = a * b (Hamilton)
+__device__ __forceinline__ void qmul_adj(Q4 a, Q4 b, Q4 g, Q4& da, Q4& db) {
+  da.x += g.x * b.w - g.y * b.z + g.z * b.y - g.w * b.x;
+  da.y += g.x * b.z + g.y * b.w - g.z * b.x - g.w * b.y;
+  da.z += -g.x * b.y + g.y * b.x + g.z * b.w - g.w * b.z;
+  da.w += g.x * b.x + g.y * b.y + g.z * b.z + g.w * b.w;
+  db.x += g.x * a.w + g.y * a.z - g.z * a.y - g.w * a.x;
+  db.y += -g.x * a.z + g.y * a.w + g.z * a.x - g.w * a.y;
+  db.z += g.x * a.y - g.y * a.x + g.z * a.w - g.w * a.z;
+  db.w += g.x * a.x + g.y * a.y + g.z * a.z + g.w * a.w;
+}
+
+// out = qrot(q, v) = v + 2 (w uv + u x uv), uv = u x v
+__device__ __forceinline__ void qrot_adj(Q4 q, V3 v, V3 g, Q4& dq, V3& dv) {
+  V3 u = {q.x, q.y, q.z};
+  V3 uv = cross(u, v);
+  acc(dv, g);
+  dq.w += 2.0f * dot(g, uv);
+  V3 g_uv = scale(g, 2.0f * q.w);
+  V3 du = {0.0f, 0.0f, 0.0f};
+  cross_adj(u, uv, scale(g, 2.0f), du, g_uv);
+  cross_adj(u, v, g_uv, du, dv);
+  dq.x += du.x; dq.y += du.y; dq.z += du.z;
+}
+
+__device__ __forceinline__ void qrot_inv_adj(Q4 q, V3 v, V3 g, Q4& dq, V3& dv) {
+  Q4 dqi = {0.0f, 0.0f, 0.0f, 0.0f};
+  qrot_adj(qinv(q), v, g, dqi, dv);
+  dq.x -= dqi.x; dq.y -= dqi.y; dq.z -= dqi.z; dq.w += dqi.w;
+}
+
+// a = katan2(y, x)
+__device__ __forceinline__ void katan2_adj(float y, float x, float g, float& dy, float& dx) {
+  float ax = fabsf(x), ay = fabsf(y);
+  float big = fmaxf(ax, ay), small = fminf(ax, ay);
+  float bigc = fmaxf(big, 1e-30f);
+  float t = small / bigc;
+  float s = t * t;
+  float P = 0.99997726f + s * (-0.33262347f + s * (0.19354346f +
+            s * (-0.11643287f + s * (0.05265332f + s * -0.01172120f))));
+  float dP = -0.33262347f + s * (2.0f * 0.19354346f + s * (3.0f * -0.11643287f +
+             s * (4.0f * 0.05265332f + s * (5.0f * -0.01172120f))));
+  float sg = g;
+  if (ay > ax) sg = -sg;
+  if (x < 0.0f) sg = -sg;
+  if (y < 0.0f) sg = -sg;
+  float gt = sg * (P + 2.0f * s * dP);
+  float g_small = gt / bigc;
+  float g_big = big > 1e-30f ? -gt * t / bigc : 0.0f;
+  float gax, gay;
+  if (ay > ax) { gay = g_big; gax = g_small; } else { gax = g_big; gay = g_small; }
+  dx += gax * sgnf(x);
+  dy += gay * sgnf(y);
+}
+
+// a = kasin(x)
+__device__ __forceinline__ void kasin_adj(float x, float g, float& dx) {
+  float xc = clampf(x, -1.0f, 1.0f);
+  float r = 1.0f - xc * xc;
+  float sr = sqrtf(fmaxf(r, 1e-30f));
+  float gy = 0.0f, gs = 0.0f;
+  katan2_adj(xc, sr, g, gy, gs);
+  if (r > 1e-30f) gy += gs * (-xc) / sr;
+  if (x >= -1.0f && x <= 1.0f) dx += gy;
+}
+
+// ---- the adjoint of one substep's pieces ---------------------------------
+
+// joint_force (substep.cuh): cotangent g of the dof force -> dq, dqd, the
+// gains rows of body b, dtgt/dact of the dof
+__device__ __forceinline__ void joint_force_adj(const Args& a, const BwdArgs& w,
+                                                const float* bf, const int* bi, int k,
+                                                int b, int e, size_t srow, float q,
+                                                float qd, float g, float& dq, float& dqd,
+                                                float* dpl) {
+  float lo = bf[20 + k], hi = bf[23 + k], lke = bf[26 + k], lkd = bf[29 + k];
+  float ke = plane(a.gains, a.gains_pe, k, b, e, a.B, a.E);
+  float kd = plane(a.gains, a.gains_pe, 3 + k, b, e, a.B, a.E);
+  int dof = bi[2 + k];
+  float tg = a.tgt[(srow + dof) * a.E + e];
+  dq += g * ke;
+  dqd += g * kd;
+  dpl[k] += g * (q - tg);
+  dpl[3 + k] += g * qd;
+  w.dtgt[(srow + dof) * a.E + e] -= g * ke;
+  if (w.dact) w.dact[(srow + dof) * a.E + e] += g;
+  // out = ... - limit_f; the `above` branch overrides `below`
+  if (q > hi) {
+    dq += g * lke;
+    if (qd > 0.0f) dqd += g * lkd;
+  } else if (q < lo) {
+    dq += g * lke;
+    if (qd < 0.0f) dqd += g * lkd;
+  }
+}
+
+__device__ __forceinline__ void add_state(float* d, V3 t, Q4 q, V3 w, V3 v) {
+  d[0] += t.x; d[1] += t.y; d[2] += t.z;
+  d[3] += q.x; d[4] += q.y; d[5] += q.z; d[6] += q.w;
+  d[7] += w.x; d[8] += w.y; d[9] += w.z;
+  d[10] += v.x; d[11] += v.y; d[12] += v.z;
+}
+
+// Symplectic Euler of body b: dn = cotangent of its new state -> dS (its
+// entering state), dF (its torque/force total) and its plane rows.
+__device__ void integrate_adj(const Args& a, const EnvState& st, int b, int e,
+                              const float* dn, float* dS, float* dF, float* dpl) {
+  const int B = a.B, E = a.E;
+  const float* bf = a.body_f + (size_t)b * BODY_F;
+  Q4 q_c = getq(st, b);
+  V3 w_c = getw(st, b), v_c = getv(st, b);
+  V3 comc = ld3(bf + 14);
+  V3 tq = {st.ft[b][0], st.ft[b][1], st.ft[b][2]};
+  V3 fo = {st.ff[b][0], st.ff[b][1], st.ff[b][2]};
+  float inv_m = plane(a.inv_m, a.inv_m_pe, 0, b, e, B, E);
+  float I[9], Ii[9];
+  for (int k = 0; k < 9; ++k) {
+    I[k] = plane(a.inertia, a.inertia_pe, k, b, e, B, E);
+    Ii[k] = plane(a.inv_inertia, a.inv_inertia_pe, k, b, e, B, E);
+  }
+  // forward recompute
+  V3 v1 = {v_c.x + (fo.x * inv_m + a.gx) * a.dt,
+           v_c.y + (fo.y * inv_m + a.gy) * a.dt,
+           v_c.z + (fo.z * inv_m + a.gz) * a.dt};
+  V3 wb = qrot_inv(q_c, w_c);
+  V3 tb0 = qrot_inv(q_c, tq);
+  V3 Iw = {I[0] * wb.x + I[1] * wb.y + I[2] * wb.z,
+           I[3] * wb.x + I[4] * wb.y + I[5] * wb.z,
+           I[6] * wb.x + I[7] * wb.y + I[8] * wb.z};
+  V3 tb = sub(tb0, cross(wb, Iw));
+  V3 It = {Ii[0] * tb.x + Ii[1] * tb.y + Ii[2] * tb.z,
+           Ii[3] * tb.x + Ii[4] * tb.y + Ii[5] * tb.z,
+           Ii[6] * tb.x + Ii[7] * tb.y + Ii[8] * tb.z};
+  V3 y = add(wb, scale(It, a.dt));
+  V3 w1 = qrot(q_c, y);
+  Q4 w1q = {w1.x, w1.y, w1.z, 0.0f};
+  Q4 dq = qmul(w1q, q_c);
+  const float hdt = 0.5f * a.dt;
+  Q4 r1 = {q_c.x + hdt * dq.x, q_c.y + hdt * dq.y, q_c.z + hdt * dq.z, q_c.w + hdt * dq.w};
+  float n2 = dot4(r1, r1);
+  float inv = 1.0f / sqrtf(fmaxf(n2, 1e-18f));
+  r1 = {r1.x * inv, r1.y * inv, r1.z * inv, r1.w * inv};
+  V3 w1d = scale(w1, a.ang_decay);
+
+  // reverse
+  V3 g_t = {dn[0], dn[1], dn[2]};
+  Q4 g_r1 = {dn[3], dn[4], dn[5], dn[6]};
+  V3 g_w = {dn[7], dn[8], dn[9]};
+  V3 g_v = {dn[10], dn[11], dn[12]};
+  V3 dv = {0.0f, 0.0f, 0.0f};
+  // new_t = x1 - qrot(r1, comc)
+  V3 g_x1 = g_t;
+  qrot_adj(r1, comc, neg(g_t), g_r1, dv);
+  V3 g_v1 = gate3(g_v, v1, 10.0f);
+  V3 g_w1 = scale(gate3(g_w, w1d, 10.0f), a.ang_decay);
+  // r1 = r1u / |r1u|
+  Q4 g_u;
+  if (n2 > 1e-18f) {
+    float d = dot4(g_r1, r1);
+    g_u = {(g_r1.x - r1.x * d) * inv, (g_r1.y - r1.y * d) * inv,
+           (g_r1.z - r1.z * d) * inv, (g_r1.w - r1.w * d) * inv};
+  } else {
+    g_u = {g_r1.x * inv, g_r1.y * inv, g_r1.z * inv, g_r1.w * inv};
+  }
+  // r1u = q_c + hdt * qmul(w1q, q_c)
+  Q4 g_qc = g_u;
+  Q4 g_dq = {g_u.x * hdt, g_u.y * hdt, g_u.z * hdt, g_u.w * hdt};
+  Q4 g_w1q = {0.0f, 0.0f, 0.0f, 0.0f};
+  qmul_adj(w1q, q_c, g_dq, g_w1q, g_qc);
+  g_w1.x += g_w1q.x; g_w1.y += g_w1q.y; g_w1.z += g_w1q.z;
+  // w1 = qrot(q_c, wb + It * dt)
+  V3 g_y = {0.0f, 0.0f, 0.0f};
+  qrot_adj(q_c, y, g_w1, g_qc, g_y);
+  V3 g_wb = g_y;
+  V3 g_It = scale(g_y, a.dt);
+  // It = Ii tb
+  float gIt[3] = {g_It.x, g_It.y, g_It.z}, tbv[3] = {tb.x, tb.y, tb.z};
+  float gtb[3] = {0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 3; ++i) {
+    for (int k = 0; k < 3; ++k) {
+      dpl[PR_INV_INERTIA + 3 * i + k] += gIt[i] * tbv[k];
+      gtb[k] += Ii[3 * i + k] * gIt[i];
+    }
+  }
+  V3 g_tb = {gtb[0], gtb[1], gtb[2]};
+  // tb = tb0 - cross(wb, Iw)
+  V3 g_Iw = {0.0f, 0.0f, 0.0f};
+  cross_adj(wb, Iw, neg(g_tb), g_wb, g_Iw);
+  // Iw = I wb
+  float gIw[3] = {g_Iw.x, g_Iw.y, g_Iw.z}, wbv[3] = {wb.x, wb.y, wb.z};
+  float gwb[3] = {0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 3; ++i) {
+    for (int k = 0; k < 3; ++k) {
+      dpl[PR_INERTIA + 3 * i + k] += gIw[i] * wbv[k];
+      gwb[k] += I[3 * i + k] * gIw[i];
+    }
+  }
+  g_wb.x += gwb[0]; g_wb.y += gwb[1]; g_wb.z += gwb[2];
+  // tb0 = qrot_inv(q_c, tq); wb = qrot_inv(q_c, w_c)
+  V3 g_tq = {0.0f, 0.0f, 0.0f}, g_wc = {0.0f, 0.0f, 0.0f};
+  qrot_inv_adj(q_c, tq, g_tb, g_qc, g_tq);
+  qrot_inv_adj(q_c, w_c, g_wb, g_qc, g_wc);
+  // x1 = x_com + v1 dt; v1 = v_c + (fo inv_m + g) dt
+  V3 g_xcom = g_x1;
+  acc(g_v1, scale(g_x1, a.dt));
+  V3 g_fo = scale(g_v1, inv_m * a.dt);
+  dpl[PR_INV_M] += dot(g_v1, fo) * a.dt;
+  // x_com = t_c + qrot(q_c, comc)
+  qrot_adj(q_c, comc, g_xcom, g_qc, dv);
+  add_state(dS, g_xcom, g_qc, g_wc, g_v1);
+  dF[0] = g_tq.x; dF[1] = g_tq.y; dF[2] = g_tq.z;
+  dF[3] = g_fo.x; dF[4] = g_fo.y; dF[5] = g_fo.z;
+}
+
+// The joint of body b (child b, parent p): dF -> dS of b and p, dtgt/dact
+// and the gains rows of b.
+__device__ void joint_adj(const Args& a, const BwdArgs& w, const EnvState& st, int b,
+                          int e, int s, const float (*dF)[6], float (*dS)[13],
+                          float (*dpl)[N_PLANE_ROWS]) {
+  const int* bi = a.body_i + (size_t)b * BODY_I;
+  const float* bf = a.body_f + (size_t)b * BODY_F;
+  const int jt = bi[1];
+  if (jt != JOINT_FIXED && jt != JOINT_REVOLUTE && jt != JOINT_COMPOUND) return;
+  const int p = bi[0];
+  const bool hp = p >= 0;
+  const size_t srow = (size_t)s * a.n_qd;
+  const float ke_a = a.attach_ke, kd_a = a.attach_kd;
+
+  // forward recompute (substep.cuh)
+  Q4 q_c = getq(st, b);
+  V3 t_c = gett(st, b), w_c = getw(st, b), v_c = getv(st, b);
+  Q4 xpq = ld4(bf + 6);
+  V3 xpt = ld3(bf + 3), rpl = ld3(bf + 17), comb = ld3(bf + 14);
+  Q4 pq = {0.f, 0.f, 0.f, 1.f};
+  Q4 X_wp_q = xpq;
+  V3 X_wp_t = xpt, w_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f}, r_p = {0.f, 0.f, 0.f};
+  if (hp) {
+    pq = getq(st, p);
+    X_wp_q = qmul(pq, xpq);
+    X_wp_t = add(gett(st, p), qrot(pq, xpt));
+    w_p = getw(st, p);
+    v_p = getv(st, p);
+    r_p = qrot(pq, rpl);
+  }
+  V3 r_c = scale(qrot(q_c, comb), -1.0f);
+  V3 x_err = sub(t_c, X_wp_t);
+  Q4 r_err = qmul(qinv(X_wp_q), q_c);
+  V3 v_err = sub(v_c, v_p);
+  V3 w_err = sub(w_c, w_p);
+  V3 attach = add(scale(x_err, ke_a), scale(v_err, kd_a));
+  V3 fj = jt == JOINT_COMPOUND ? clamp3(attach, 10000.0f) : attach;
+
+  // scatter: child -= (t + r_c x f, f); parent += (t + r_p x f, f)
+  V3 g_childt = {-dF[b][0], -dF[b][1], -dF[b][2]};
+  V3 g_fj = {-dF[b][3], -dF[b][4], -dF[b][5]};
+  V3 g_tt = g_childt;
+  V3 g_rc = {0.f, 0.f, 0.f}, g_rp = {0.f, 0.f, 0.f};
+  cross_adj(r_c, fj, g_childt, g_rc, g_fj);
+  if (hp) {
+    V3 g_pt = {dF[p][0], dF[p][1], dF[p][2]};
+    g_fj.x += dF[p][3]; g_fj.y += dF[p][4]; g_fj.z += dF[p][5];
+    acc(g_tt, g_pt);
+    cross_adj(r_p, fj, g_pt, g_rp, g_fj);
+  }
+
+  V3 g_attach = {0.f, 0.f, 0.f}, g_werr = {0.f, 0.f, 0.f}, dv = {0.f, 0.f, 0.f};
+  Q4 g_rerr = {0.f, 0.f, 0.f, 0.f}, g_Xwpq = {0.f, 0.f, 0.f, 0.f}, g_qc = {0.f, 0.f, 0.f, 0.f};
+  Q4 dq_unused = {0.f, 0.f, 0.f, 0.f};
+  float* dplb = dpl[b];
+
+  if (jt == JOINT_FIXED) {
+    V3 rv = {r_err.x, r_err.y, r_err.z};
+    float sq = dot(rv, rv);
+    bool is_zero = sq < 1e-12f;
+    float norms = is_zero ? 0.0f : sqrtf(sq);
+    float half = katan2(norms, r_err.w);
+    float ang = 2.0f * half;
+    bool small = fabsf(ang) < 1e-6f;
+    float sho = small ? 0.5f - ang * ang / 48.0f : sinf(half) / ang;
+    V3 ang_err = {rv.x / sho, rv.y / sho, rv.z / sho};
+    // fj = attach; tt = qrot(X_wp_q, ang_err) ke_a + w_err kd_a kAngDamp
+    acc(g_attach, g_fj);
+    acc(g_werr, scale(g_tt, kd_a * kAngDamp));
+    V3 g_ae = {0.f, 0.f, 0.f};
+    qrot_adj(X_wp_q, ang_err, scale(g_tt, ke_a), g_Xwpq, g_ae);
+    V3 g_rv = scale(g_ae, 1.0f / sho);
+    float g_sho = -dot(g_ae, rv) / (sho * sho);
+    float g_half = 0.0f, g_ang = 0.0f;
+    if (small) {
+      g_ang += g_sho * (-ang / 24.0f);
+    } else {
+      g_half += g_sho * cosf(half) / ang;
+      g_ang -= g_sho * sinf(half) / (ang * ang);
+    }
+    g_half += 2.0f * g_ang;
+    float g_norms = 0.0f, g_w = 0.0f;
+    katan2_adj(norms, r_err.w, g_half, g_norms, g_w);
+    if (!is_zero) acc(g_rv, scale(rv, g_norms / norms));
+    acc(g_rerr, Q4{g_rv.x, g_rv.y, g_rv.z, g_w});
+  } else if (jt == JOINT_REVOLUTE) {
+    V3 axis = ld3(bf);
+    V3 axis_p = qrot(X_wp_q, axis);
+    V3 axis_cw = qrot(q_c, axis);
+    float s_tw = r_err.x * axis.x + r_err.y * axis.y + r_err.z * axis.z;
+    float q_ang = 2.0f * katan2(s_tw, r_err.w);
+    float qd_ang = dot(w_err, axis_p);
+    float fmag = joint_force(a, bf, bi, 0, b, e, srow, q_ang, qd_ang);
+    // tt = axis_p fmag + swing ke_a + (w_err - qd_ang axis_p) kd_a kAngDamp
+    acc(g_attach, g_fj);
+    const float c = kd_a * kAngDamp;
+    V3 g_axp = scale(g_tt, fmag - qd_ang * c);
+    float g_fmag = dot(g_tt, axis_p);
+    acc(g_werr, scale(g_tt, c));
+    float g_qd = -dot(g_tt, axis_p) * c;
+    V3 g_axcw = {0.f, 0.f, 0.f};
+    cross_adj(axis_p, axis_cw, scale(g_tt, ke_a), g_axp, g_axcw);
+    float g_q = 0.0f;
+    joint_force_adj(a, w, bf, bi, 0, b, e, srow, q_ang, qd_ang, g_fmag, g_q, g_qd, dplb);
+    acc(g_werr, scale(axis_p, g_qd));
+    acc(g_axp, scale(w_err, g_qd));
+    float g_s = 0.0f, g_w = 0.0f;
+    katan2_adj(s_tw, r_err.w, 2.0f * g_q, g_s, g_w);
+    acc(g_rerr, Q4{axis.x * g_s, axis.y * g_s, axis.z * g_s, g_w});
+    qrot_adj(q_c, axis, g_axcw, g_qc, dv);
+    qrot_adj(X_wp_q, axis, g_axp, g_Xwpq, dv);
+  } else {  // JOINT_COMPOUND
+    Q4 qoff = ld4(bf + 10);
+    Q4 A = qmul(qinv(qoff), r_err);
+    Q4 q_pc = qmul(A, qoff);
+    float x = q_pc.x, y = q_pc.y, z = q_pc.z, ww = q_pc.w;
+    float m12 = 2.0f * (y * z - ww * x);
+    float m22 = 1.0f - 2.0f * (x * x + y * y);
+    float m02 = 2.0f * (x * z + ww * y);
+    float m01 = 2.0f * (x * y - ww * z);
+    float m00 = 1.0f - 2.0f * (y * y + z * z);
+    float m02c = clampf(m02, -kSinLimit, kSinLimit);
+    float ang[3];
+    ang[0] = katan2(-m12, m22);
+    ang[1] = kasin(m02c);
+    ang[2] = katan2(-m01, m00);
+    float sa = sinf(0.5f * ang[0]), ca = cosf(0.5f * ang[0]);
+    Q4 q0 = {sa, 0.0f, 0.0f, ca};
+    const V3 ey = {0.0f, 1.0f, 0.0f}, ez = {0.0f, 0.0f, 1.0f};
+    V3 ax[3];
+    ax[0] = {1.0f, 0.0f, 0.0f};
+    ax[1] = qrot(q0, ey);
+    float sb = sinf(0.5f * ang[1]), cb = cosf(0.5f * ang[1]);
+    Q4 q1 = {ax[1].x * sb, ax[1].y * sb, ax[1].z * sb, cb};
+    Q4 q10 = qmul(q1, q0);
+    ax[2] = qrot(q10, ez);
+    Q4 q_w = qmul(X_wp_q, qoff);
+    V3 axw[3];
+    float qdk[3], fm[3];
+    V3 tc = {0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < 3; ++k) {
+      axw[k] = qrot(q_w, ax[k]);
+      qdk[k] = dot(axw[k], w_err);
+      fm[k] = joint_force(a, bf, bi, k, b, e, srow, ang[k], qdk[k]);
+      tc = add(tc, scale(axw[k], fm[k]));
+    }
+    // tt = clamp3(tc), fj = clamp3(attach)
+    V3 g_tc = gate3(g_tt, tc, 10000.0f);
+    acc(g_attach, gate3(g_fj, attach, 10000.0f));
+    Q4 g_qw = {0.f, 0.f, 0.f, 0.f};
+    V3 g_ax[3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+    float g_ang[3] = {0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < 3; ++k) {
+      V3 g_axw = scale(g_tc, fm[k]);
+      float g_fm = dot(g_tc, axw[k]);
+      float g_qk = 0.0f, g_qdk = 0.0f;
+      joint_force_adj(a, w, bf, bi, k, b, e, srow, ang[k], qdk[k], g_fm, g_qk, g_qdk, dplb);
+      g_ang[k] += g_qk;
+      acc(g_axw, scale(w_err, g_qdk));
+      acc(g_werr, scale(axw[k], g_qdk));
+      qrot_adj(q_w, ax[k], g_axw, g_qw, g_ax[k]);
+    }
+    qmul_adj(X_wp_q, qoff, g_qw, g_Xwpq, dq_unused);
+    Q4 g_q10 = {0.f, 0.f, 0.f, 0.f}, g_q1 = {0.f, 0.f, 0.f, 0.f}, g_q0 = {0.f, 0.f, 0.f, 0.f};
+    qrot_adj(q10, ez, g_ax[2], g_q10, dv);
+    qmul_adj(q1, q0, g_q10, g_q1, g_q0);
+    acc(g_ax[1], V3{g_q1.x * sb, g_q1.y * sb, g_q1.z * sb});
+    float g_sb = g_q1.x * ax[1].x + g_q1.y * ax[1].y + g_q1.z * ax[1].z;
+    g_ang[1] += 0.5f * (g_sb * cb - g_q1.w * sb);
+    qrot_adj(q0, ey, g_ax[1], g_q0, dv);
+    g_ang[0] += 0.5f * (g_q0.x * ca - g_q0.w * sa);
+    float g12 = 0.f, g22 = 0.f, g02 = 0.f, g01 = 0.f, g00 = 0.f, gy = 0.f, gx = 0.f;
+    katan2_adj(-m12, m22, g_ang[0], gy, gx);
+    g12 -= gy; g22 += gx;
+    float g02c = 0.0f;
+    kasin_adj(m02c, g_ang[1], g02c);
+    if (m02 >= -kSinLimit && m02 <= kSinLimit) g02 += g02c;
+    gy = 0.f; gx = 0.f;
+    katan2_adj(-m01, m00, g_ang[2], gy, gx);
+    g01 -= gy; g00 += gx;
+    Q4 g_pc = {-2.0f * ww * g12 - 4.0f * x * g22 + 2.0f * z * g02 + 2.0f * y * g01,
+               2.0f * z * g12 - 4.0f * y * g22 + 2.0f * ww * g02 + 2.0f * x * g01 - 4.0f * y * g00,
+               2.0f * y * g12 + 2.0f * x * g02 - 2.0f * ww * g01 - 4.0f * z * g00,
+               -2.0f * x * g12 + 2.0f * y * g02 - 2.0f * z * g01};
+    Q4 g_A = {0.f, 0.f, 0.f, 0.f};
+    qmul_adj(A, qoff, g_pc, g_A, dq_unused);
+    qmul_adj(qinv(qoff), r_err, g_A, dq_unused, g_rerr);
+  }
+
+  // common frame: attach, errors, parent transform
+  V3 g_xerr = scale(g_attach, ke_a);
+  V3 g_verr = scale(g_attach, kd_a);
+  Q4 g_qiX = {0.f, 0.f, 0.f, 0.f};
+  qmul_adj(qinv(X_wp_q), q_c, g_rerr, g_qiX, g_qc);
+  g_Xwpq.x -= g_qiX.x; g_Xwpq.y -= g_qiX.y; g_Xwpq.z -= g_qiX.z; g_Xwpq.w += g_qiX.w;
+  qrot_adj(q_c, comb, neg(g_rc), g_qc, dv);
+  add_state(dS[b], g_xerr, g_qc, g_werr, g_verr);
+  if (hp) {
+    Q4 g_pq = {0.f, 0.f, 0.f, 0.f};
+    V3 g_Xwpt = neg(g_xerr);
+    qmul_adj(pq, xpq, g_Xwpq, g_pq, dq_unused);
+    qrot_adj(pq, xpt, g_Xwpt, g_pq, dv);
+    qrot_adj(pq, rpl, g_rp, g_pq, dv);
+    add_state(dS[p], g_Xwpt, g_pq, neg(g_werr), neg(g_verr));
+  }
+}
+
+// Contact c: dF of its body -> dS of its body. Inactive contacts carry no
+// force and no cotangent.
+__device__ void contact_adj(const Args& a, const EnvState& st, int c,
+                            const float (*dF)[6], float (*dS)[13]) {
+  const int b = a.cbody[c];
+  const float* cf = a.cf + (size_t)c * CONTACT_F;
+  const float* bf = a.body_f + (size_t)b * BODY_F;
+  Q4 qb = getq(st, b);
+  V3 tb = gett(st, b), wb = getw(st, b), vb = getv(st, b);
+  V3 comb = ld3(bf + 14), pt = ld3(cf);
+  V3 com_w = add(tb, qrot(qb, comb));
+  V3 cp = add(qrot(qb, pt), tb);
+  cp.y = cp.y - cf[3];
+  if (!(cp.y < 0.0f)) return;
+  V3 r = sub(cp, com_w);
+  V3 dpdt = add(vb, cross(wb, r));
+  float vn = dpdt.y;
+  V3 vt = {dpdt.x, dpdt.y - vn, dpdt.z};
+  float fn = cp.y * cf[4];
+  float fd = fminf(vn, 0.0f) * cf[5];
+  float vt_len = sqrtf(dot(vt, vt) + 1e-12f);
+  float fa = cf[6] * vt_len, fb = -cf[7] * (fn + fd);
+  float ft_mag = fminf(fa, fb);
+  float ratio = ft_mag / vt_len;
+  V3 ftan = scale(vt, ratio);
+  V3 fraw = {ftan.x, (fn + fd) + ftan.y, ftan.z};
+  V3 f = clamp3(fraw, 500.0f);
+
+  // body forces -= (r x f, f)
+  V3 g_t = {-dF[b][0], -dF[b][1], -dF[b][2]};
+  V3 g_f = {-dF[b][3], -dF[b][4], -dF[b][5]};
+  V3 g_r = {0.f, 0.f, 0.f};
+  cross_adj(r, f, g_t, g_r, g_f);
+  V3 g_ftan = gate3(g_f, fraw, 500.0f);
+  float g_fnfd = g_ftan.y;
+  V3 g_vt = scale(g_ftan, ratio);
+  float g_ratio = dot(g_ftan, vt);
+  float g_ftmag = g_ratio / vt_len;
+  float g_vtlen = -g_ratio * ft_mag / (vt_len * vt_len);
+  if (fa < fb) g_vtlen += g_ftmag * cf[6];
+  else g_fnfd -= cf[7] * g_ftmag;
+  acc(g_vt, scale(vt, g_vtlen / vt_len));
+  float g_vn = vn < 0.0f ? g_fnfd * cf[5] : 0.0f;
+  float g_cy = g_fnfd * cf[4];
+  V3 g_dpdt = g_vt;
+  g_vn -= g_vt.y;
+  g_dpdt.y += g_vn;
+  V3 g_wb = {0.f, 0.f, 0.f};
+  cross_adj(wb, r, g_dpdt, g_wb, g_r);
+  V3 g_cp = g_r;
+  g_cp.y += g_cy;
+  V3 g_comw = neg(g_r);
+  Q4 g_qb = {0.f, 0.f, 0.f, 0.f};
+  V3 dv = {0.f, 0.f, 0.f};
+  qrot_adj(qb, pt, g_cp, g_qb, dv);
+  qrot_adj(qb, comb, g_comw, g_qb, dv);
+  add_state(dS[b], add(g_cp, g_comw), g_qb, g_wb, g_dpdt);
+}
+
+// ---- kernels -------------------------------------------------------------
+
+__global__ void soa_interval_fwd_kernel(Args a, float* __restrict__ sstate, int S) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= a.E) return;
+  const int B = a.B, E = a.E;
+  EnvState st;
+  for (int b = 0; b < B; ++b) {
+    for (int k = 0; k < 7; ++k) st.q[b][k] = a.bq0[((size_t)k * B + b) * E + e];
+    for (int k = 0; k < 6; ++k) st.qd[b][k] = a.bqd0[((size_t)k * B + b) * E + e];
+  }
+  for (int i = 0; i < S; ++i) {
+    if (sstate) {
+      for (int b = 0; b < B; ++b) {
+        for (int k = 0; k < 7; ++k)
+          sstate[(((size_t)i * 13 + k) * B + b) * E + e] = st.q[b][k];
+        for (int k = 0; k < 6; ++k)
+          sstate[(((size_t)i * 13 + 7 + k) * B + b) * E + e] = st.qd[b][k];
+      }
+    }
+    substep(a, st, e, i, false, 0, true);
+  }
+  for (int b = 0; b < B; ++b) {
+    for (int k = 0; k < 7; ++k) a.out_q[((size_t)k * B + b) * E + e] = st.q[b][k];
+    for (int k = 0; k < 6; ++k) a.out_qd[((size_t)k * B + b) * E + e] = st.qd[b][k];
+  }
+}
+
+__global__ void soa_interval_bwd_kernel(Args a, BwdArgs w) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= a.E) return;
+  const int B = a.B, E = a.E;
+  EnvState st;
+  float dn[MAX_BODIES][13], dS[MAX_BODIES][13], dF[MAX_BODIES][6];
+  float dpl[MAX_BODIES][N_PLANE_ROWS];
+  for (int b = 0; b < B; ++b) {
+    for (int k = 0; k < 7; ++k) dn[b][k] = w.dq[((size_t)k * B + b) * E + e];
+    for (int k = 0; k < 6; ++k) dn[b][7 + k] = w.dqd[((size_t)k * B + b) * E + e];
+    for (int r = 0; r < N_PLANE_ROWS; ++r) dpl[b][r] = 0.0f;
+  }
+  for (int j = w.S - 1; j >= 0; --j) {
+    for (int b = 0; b < B; ++b) {
+      for (int k = 0; k < 7; ++k)
+        st.q[b][k] = w.sstate[(((size_t)j * 13 + k) * B + b) * E + e];
+      for (int k = 0; k < 6; ++k)
+        st.qd[b][k] = w.sstate[(((size_t)j * 13 + 7 + k) * B + b) * E + e];
+      for (int k = 0; k < 13; ++k) dS[b][k] = 0.0f;
+    }
+    substep(a, st, e, j, false, 0, false);  // this substep's force totals
+    for (int b = 0; b < B; ++b) integrate_adj(a, st, b, e, dn[b], dS[b], dF[b], dpl[b]);
+    if (w.dres) {
+      for (int b = 0; b < B; ++b)
+        for (int k = 0; k < 6; ++k)
+          w.dres[(((size_t)j * 6 + k) * B + b) * E + e] = dF[b][k];
+    }
+    const size_t srow = (size_t)j * a.n_qd;
+    for (int d = 0; d < a.n_qd; ++d) {
+      w.dtgt[(srow + d) * E + e] = 0.0f;
+      if (w.dact) w.dact[(srow + d) * E + e] = 0.0f;
+    }
+    for (int b = 0; b < B; ++b) joint_adj(a, w, st, b, e, j, dF, dS, dpl);
+    for (int c = 0; c < a.C; ++c) contact_adj(a, st, c, dF, dS);
+    for (int b = 0; b < B; ++b)
+      for (int k = 0; k < 13; ++k) dn[b][k] = dS[b][k];
+  }
+  for (int b = 0; b < B; ++b) {
+    for (int k = 0; k < 7; ++k) w.dbq0[((size_t)k * B + b) * E + e] = dn[b][k];
+    for (int k = 0; k < 6; ++k) w.dbqd0[((size_t)k * B + b) * E + e] = dn[b][7 + k];
+    for (int r = 0; r < N_PLANE_ROWS; ++r)
+      w.dplanes[((size_t)r * B + b) * E + e] = dpl[b][r];
+  }
+}
+
+// out[r] = sum over e of in[r][e], envs in ascending order
+__global__ void soa_interval_reduce_kernel(const float* __restrict__ in,
+                                           float* __restrict__ out, int rows, int E) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* p = in + (size_t)r * E;
+  float s = 0.0f;
+  for (int e = 0; e < E; ++e) s += p[e];
+  out[r] = s;
+}
+
+Args make_args(const float* tgt, const float* act, const float* res, const int* body_i,
+               const float* body_f, const int* cbody, const float* cf,
+               const float* gains, int gains_pe, const float* inv_m, int inv_m_pe,
+               const float* inertia, int inertia_pe, const float* inv_inertia,
+               int inv_inertia_pe, int E, int B, int n_qd, int C, float dt,
+               float ang_decay, float gx, float gy, float gz, float attach_ke,
+               float attach_kd) {
+  Args a = {};
+  a.tgt = tgt; a.act = act; a.res = res;
+  a.body_i = body_i; a.body_f = body_f; a.cbody = cbody; a.cf = cf;
+  a.gains = gains; a.inv_m = inv_m; a.inertia = inertia; a.inv_inertia = inv_inertia;
+  a.gains_pe = gains_pe; a.inv_m_pe = inv_m_pe;
+  a.inertia_pe = inertia_pe; a.inv_inertia_pe = inv_inertia_pe;
+  a.E = E; a.B = B; a.n_qd = n_qd; a.C = C;
+  a.dt = dt; a.ang_decay = ang_decay; a.gx = gx; a.gy = gy; a.gz = gz;
+  a.attach_ke = attach_ke; a.attach_kd = attach_kd;
+  return a;
+}
+
+bool bad_dims(int E, int B, int C, int S, int threads) {
+  return B < 1 || B > MAX_BODIES || E < 1 || S < 1 || C < 0 || threads < 1 ||
+         threads > 1024;
+}
+
+}  // namespace
+
+extern "C" int soa_interval_plane_rows() { return N_PLANE_ROWS; }
+extern "C" int soa_interval_max_bodies() { return MAX_BODIES; }
+
+extern "C" int soa_interval_fwd_launch(
+    const float* bq0, const float* bqd0, const float* tgt, const float* act,
+    const float* res, const int* body_i, const float* body_f, const int* cbody,
+    const float* cf, const float* gains, int gains_pe, const float* inv_m, int inv_m_pe,
+    const float* inertia, int inertia_pe, const float* inv_inertia, int inv_inertia_pe,
+    float* out_q, float* out_qd, float* sstate, int E, int B, int n_qd, int C, int S,
+    float dt, float ang_decay, float gx, float gy, float gz, float attach_ke,
+    float attach_kd, int threads, void* stream) {
+  if (bad_dims(E, B, C, S, threads)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(tgt, act, res, body_i, body_f, cbody, cf, gains, gains_pe, inv_m,
+                     inv_m_pe, inertia, inertia_pe, inv_inertia, inv_inertia_pe, E, B,
+                     n_qd, C, dt, ang_decay, gx, gy, gz, attach_ke, attach_kd);
+  a.bq0 = bq0; a.bqd0 = bqd0; a.out_q = out_q; a.out_qd = out_qd;
+  const int blocks = (E + threads - 1) / threads;
+  soa_interval_fwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a, sstate, S);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int soa_interval_bwd_launch(
+    const float* sstate, const float* tgt, const float* act, const float* res,
+    const int* body_i, const float* body_f, const int* cbody, const float* cf,
+    const float* gains, int gains_pe, const float* inv_m, int inv_m_pe,
+    const float* inertia, int inertia_pe, const float* inv_inertia, int inv_inertia_pe,
+    const float* dq, const float* dqd, float* dbq0, float* dbqd0, float* dtgt,
+    float* dact, float* dres, float* dplanes, int E, int B, int n_qd, int C, int S,
+    float dt, float ang_decay, float gx, float gy, float gz, float attach_ke,
+    float attach_kd, int threads, void* stream) {
+  if (bad_dims(E, B, C, S, threads)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(tgt, act, res, body_i, body_f, cbody, cf, gains, gains_pe, inv_m,
+                     inv_m_pe, inertia, inertia_pe, inv_inertia, inv_inertia_pe, E, B,
+                     n_qd, C, dt, ang_decay, gx, gy, gz, attach_ke, attach_kd);
+  BwdArgs w;
+  w.sstate = sstate; w.dq = dq; w.dqd = dqd; w.dbq0 = dbq0; w.dbqd0 = dbqd0;
+  w.dtgt = dtgt; w.dact = dact; w.dres = dres; w.dplanes = dplanes; w.S = S;
+  const int blocks = (E + threads - 1) / threads;
+  soa_interval_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a, w);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int soa_interval_reduce_launch(const float* in, float* out, int rows, int E,
+                                          int threads, void* stream) {
+  if (rows < 1 || E < 1 || threads < 1 || threads > 1024) return (int)cudaErrorInvalidValue;
+  const int blocks = (rows + threads - 1) / threads;
+  soa_interval_reduce_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(in, out, rows, E);
+  return (int)cudaGetLastError();
+}

@@ -12,7 +12,9 @@
 - ``FrameSampler``: raw (possibly fractional) frame ids -> normalized time
   and video id on the device;
 - ``timemlp_params_from_jax``: a flax TimeMLP parameter tree of numpy
-  arrays (as the JAX package pickles it) -> a ``TimeMLP`` state dict.
+  arrays (as the JAX package pickles it) -> a ``TimeMLP`` state dict, and
+  ``timemlp_params_to_jax`` the other way; ``jax_param_path`` names each
+  tensor by its flax path (the JAX package's per-tensor names).
 """
 
 from __future__ import annotations
@@ -183,3 +185,34 @@ def timemlp_params_from_jax(np_tree) -> dict:
         sd.update(_dense(v, k + ".0"))
     sd.update(_dense(np_tree["head"], "head.0"))
     return sd
+
+
+def jax_param_path(torch_key: str):
+    """(flax path tuple, transposed) of a TimeMLP state-dict key: Dense
+    ``weight`` is the transposed ``kernel``; trunk layers live under
+    ``trunk``."""
+    parts = torch_key.split(".")
+    if parts[0] == "time_embedding":
+        if parts[1] == "inst_embedding":
+            return ("time_embedding", "inst_embedding", "embedding"), False
+        mod = ("time_embedding", parts[1])
+    elif parts[0] == "head":
+        mod = ("head",)
+    else:  # linear_<i>.0 / linear_final.0
+        mod = ("trunk", parts[0])
+    leaf = parts[-1]
+    return mod + ("kernel" if leaf == "weight" else "bias",), leaf == "weight"
+
+
+def timemlp_params_to_jax(module: TimeMLP) -> dict:
+    """A ``TimeMLP``'s tensors as the flax parameter tree of numpy arrays
+    that the JAX package pickles (inverse of ``timemlp_params_from_jax``)."""
+    tree = {}
+    for k, v in module.state_dict().items():
+        path, transposed = jax_param_path(k)
+        a = v.detach().cpu().numpy()
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.array(a.T if transposed else a, order="C", copy=True)
+    return tree

@@ -1,18 +1,28 @@
 """phys_model (PyTorch), counterpart of
-``ppr_diffphys_tpu/models/phys_model.py`` — the **serving subset**.
+``ppr_diffphys_tpu/models/phys_model.py``: the differentiable-physics
+optimization model, single device.
 
-What is here: the robot template table, URDF import and mass surgery, the
+Serving: the robot template table, URDF import and mass surgery, the
 parameters (``global_q``, ``target_ke/kd``, ``body_mass``) and the five
 time-MLPs, the mocap table and its interpolation, the window inputs
-(``get_batch_input``), the foot height, ``init_global_q``, and loading of
-parameters and pickle checkpoints written by the JAX package.
+(``get_batch_input``), the foot height and ``init_global_q``.
 
-Not here yet (the training slice): losses, ``forward``/``update``, the
-optimizer, rollback and multi-device placement.
+Training (reference dp_model.py:56-1011, the JAX ``_forward_pure`` and
+host loop API): ``forward`` computes the loss dict and, in train mode, the
+gradients (the rollout runs on ``sim/soa_grad.py``'s interval kernels on
+CUDA, their plain version on the CPU); ``update`` runs the grad-norm
+rollback and the per-tensor median-queue clipping, then AdamW with the
+OneCycle schedule per parameter group; ``save_checkpoint`` pickles the JAX
+package's checkpoint layout (flax-layout MLP trees), so checkpoints move
+between the two packages both ways. Eval (``is_eval``) runs the window
+without gradient through ``sim/soa.py:SoaWindow`` (K1 on CUDA).
+
+Not here: multi-device placement, the lab4d ``joint_X_p`` override, orbax.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 
@@ -32,26 +42,84 @@ from ..ops import (
 )
 from ..sim.builder import ModelBuilder
 from ..sim.import_urdf import parse_urdf
-from ..sim.integrator import SemiImplicitIntegrator, SimParams
+from ..sim.integrator import SemiImplicitIntegrator, SimParams, SimState
 from ..sim.kinematics import eval_fk
-from ..utils.config import DEFAULT_OPTS
-from .mlp import FrameSampler, TimeMLP, resolve_num_freq_t, timemlp_params_from_jax
+from ..sim.soa import SoaWindow
+from ..sim.soa_grad import make_diff_interval, rollout_soa
+from ..utils.config import DEFAULT_OPTS, interp_wt, match_param_name
+from .losses import compute_com, reduce_loss, se3_loss
+from .mlp import (
+    FrameSampler,
+    TimeMLP,
+    jax_param_path,
+    resolve_num_freq_t,
+    timemlp_params_from_jax,
+    timemlp_params_to_jax,
+)
 
 MLP_NAMES = ("root_pose_mlp", "joint_angle_mlp", "vel_mlp", "torque_mlp",
              "residual_f_mlp")
 PARAM_NAMES = ("global_q", "target_ke", "target_kd", "body_mass")
+LOSS_KEYS = (
+    "traj", "pos_state", "vel_state", "pos_distill",
+    "reg_torque", "reg_res_f", "reg_foot",
+)
+
+
+class _ScrubGrad(torch.autograd.Function):
+    """Identity whose cotangent is NaN-scrubbed and clamped to [-1, 1]
+    (reference dp_model.py:1103-1127 remove_nan + clamp)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = torch.nan_to_num(g, nan=0.0, posinf=1.0, neginf=-1.0)
+        return torch.clamp(g, -1.0, 1.0)
+
+
+class _ScrubGradRef(torch.autograd.Function):
+    """The reference-exact variant: NaN -> 0 and an upper-only clamp
+    (dp_model.py:1109-1110, :1121-1123), for opts['ref_quirks']."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(torch.nan_to_num(g, nan=0.0), max=1.0)
+
+
+def scrub_grad(x):
+    return _ScrubGrad.apply(x)
+
+
+def scrub_grad_ref(x):
+    return _ScrubGradRef.apply(x)
 
 
 class phys_model:
-    """Reference-compatible model surface (dp_model.py), serving subset:
-    __init__(opts, dataloader, device), reinit_envs, get_batch_input,
-    get_foot_height, init_global_q, load_checkpoint,
+    """Reference-compatible API (dp_model.py): __init__(opts, dataloader,
+    device), reinit_envs, forward, backward, update, query,
+    save/load_checkpoint, check_grad, clear_grad, plus
     load_params_from_jax."""
 
     def __init__(self, opts, dataloader, dt=5e-4, device=None):
         self.opts = opts
         self.device = default_device(device)
+        logname = "%s-%s" % (opts["seqname"], opts["logname"])
+        self.save_dir = os.path.join(opts["logroot"], logname)
+        self.total_iters = (
+            int(opts["num_rounds"] * opts["iters_per_round"] * opts["ratio_phys_cycle"])
+            + opts["warmup_iters"]
+            + 1
+        )
+        self.progress = 0.0
         self.dt = dt
+        self.noise_std = opts["noise_std"]
         self.preset_data(dataloader)
 
         # ---- robot template table (reference dp_model.py:76-121) ----------
@@ -149,6 +217,15 @@ class phys_model:
         }
         self.add_nn_modules()
         self.init_global_q()
+        self.add_optimizer(opts)
+
+        # 2-deep rollback caches (reference dp_model.py:232-235)
+        self.model_cache = [None, None]
+        self.optimizer_cache = [None, None]
+        self.grad_queue = {}
+        self._grad_accum = []
+        self._pending_update = None
+        self._kernels = {}
 
     def _t(self, x):
         return torch.tensor(np.asarray(x), dtype=torch.float32, device=self.device)
@@ -237,7 +314,6 @@ class phys_model:
             joint_target_kd=params["target_kd"],
         )
 
-    @torch.no_grad()
     def get_batch_input(self, params, steps_fr):
         """Targets + network predictions for a window (reference
         dp_model.py:611-662). steps_fr (E, S) fractional frames (float32
@@ -295,7 +371,7 @@ class phys_model:
         q = torch.cat([batch["queried_q"][:, 0], batch["queried_ja"][:, 0]], -1)
         body_q, _ = eval_fk(self.env, q)
         foot_height = float(self.get_foot_height(body_q[:, None])[0, 0])
-        self.params["global_q"] = self._t([0.0, -foot_height, 0.0, 0.0, 0.0, 0.0, 1.0])
+        self._set_param("global_q", [0.0, -foot_height, 0.0, 0.0, 0.0, 0.0, 1.0])
 
     # ------------------------------------------------------------------
     # parameters from the JAX package
@@ -306,7 +382,7 @@ class phys_model:
         from ``np_params`` keep their values."""
         for k in PARAM_NAMES:
             if k in np_params:
-                self.params[k] = self._t(np.array(np_params[k], np.float32))
+                self._set_param(k, np.array(np_params[k], np.float32))
         for k in MLP_NAMES:
             if k in np_params:
                 sd = timemlp_params_from_jax(np_params[k])
@@ -319,3 +395,456 @@ class phys_model:
         with open(model_path, "rb") as f:
             states = pickle.load(f)
         self.load_params_from_jax(states)
+
+    def _set_param(self, name, value):
+        """Write a top-level parameter in place (the optimizer holds these
+        tensors), creating it on first use."""
+        value = torch.as_tensor(np.asarray(value, np.float32), device=self.device)
+        if name not in self.params:
+            self.params[name] = value.clone()
+            return
+        with torch.no_grad():
+            self.params[name].copy_(value)
+
+    # ------------------------------------------------------------------
+    # forward (reference dp_model.py:664-838)
+    # ------------------------------------------------------------------
+    def fk_pos_vel(self, q7, ja, qd6, jad):
+        """FK of [root 7 + joint angles] with velocities given in ppr
+        layout (reference dp_model.py:588-603). Inputs (..., .)."""
+        joint_q = torch.cat([q7, ja], -1)
+        joint_qd = swap_lin_ang(torch.cat([qd6, jad], -1))
+        body_q, body_qd = eval_fk(self.env, joint_q, joint_qd)
+        return body_q, swap_lin_ang(body_qd)
+
+    def _interval(self):
+        """The differentiable frame interval (built once per integrator)."""
+        key = ("interval", id(self.integrator), self.steps_per_fr_interval)
+        if key not in self._kernels:
+            self._kernels[key] = make_diff_interval(
+                self.integrator, self.dt, self.steps_per_fr_interval,
+                # residual forces and joint activations are structurally
+                # zero (reference dp_model.py:529/:536)
+                with_res=bool(self.opts.get("soa_with_res", False)),
+                with_act=bool(self.opts.get("soa_with_act", False)),
+            )
+        return self._kernels[key]
+
+    def _window(self, n_frames):
+        """The no-gradient whole-window rollout used by eval."""
+        key = ("window", id(self.integrator), n_frames)
+        if key not in self._kernels:
+            self._kernels[key] = SoaWindow(
+                self.integrator, self.dt, self.steps_per_fr_interval, n_frames)
+        return self._kernels[key]
+
+    def _forward_pure(self, params, frame_start, progress, weights, is_train):
+        """The whole forward: mocap targets, MLP queries, FK, the rollout
+        and the losses (JAX phys_model._forward_pure)."""
+        E = frame_start.shape[0]
+        S = len(self.steps_idx)
+        sub = self.steps_per_fr_interval
+        dev = self.device
+        f2s = torch.as_tensor(self.frame2step, dtype=torch.long, device=dev)
+
+        steps_fr = frame_start[:, None] + torch.as_tensor(
+            self.steps_idx_fr, dtype=torch.float32, device=dev)[None]
+
+        # out-of-sequence mask over frames (reference dp_model.py:677-682)
+        vidid = self.samplers["joint_angle_mlp"].frame_to_vid(steps_fr[:, f2s])
+        outseq = (vidid[:, :1] - vidid) != 0
+
+        batch = self.get_batch_input(params, steps_fr)
+        stk = lambda a, b: torch.stack([a[:, f2s], b[:, f2s]], 0)
+        both_position, both_velocity = self.fk_pos_vel(
+            stk(batch["target_q"], batch["queried_q"]),
+            stk(batch["target_ja"], batch["queried_ja"]),
+            stk(batch["target_qd"], batch["queried_qd"][..., :6]),
+            stk(batch["target_jad"], batch["queried_qd"][..., 6:]),
+        )
+        target_position, queried_position = both_position[0], both_position[1]
+        queried_velocity = both_velocity[1]
+
+        # initial state (+ annealed noise, reference dp_model.py:700-712)
+        q_init = torch.cat([batch["queried_q"][:, 0], batch["queried_ja"][:, 0]], -1)
+        if is_train and self.noise_std > 0:
+            noise_ratio = float(np.clip(1.0 - 1.5 * progress, 0.0, 1.0))
+            noise = torch.randn(q_init.shape, generator=self.generator).to(dev)
+            noise = noise * self.noise_std * noise_ratio
+            noise[:, :3] = 0.0
+            noise[:, 3:7] *= 5.0
+            q_init = q_init + noise
+        qd_init = swap_lin_ang(batch["queried_qd"][:, 0])
+        body_q0, body_qd0 = eval_fk(self.env, q_init, qd_init)
+        state0 = SimState(body_q0, body_qd0)
+
+        # control reference at every substep: zeros(6) + queried joint
+        # angles (reference rearrange_pred, dp_model.py:554-572)
+        zeros6 = torch.zeros((E, S, 6), dtype=torch.float32, device=dev)
+        ref_ja = torch.cat([zeros6, batch["queried_ja"]], -1).transpose(0, 1)
+        torques = torch.cat([zeros6, batch["torques"]], -1).transpose(0, 1)
+        res_f = swap_lin_ang(batch["res_f"]).transpose(0, 1)  # (S,E,B,6)
+
+        sp = self._sim_params(params)
+        quirks = bool(self.opts.get("ref_quirks", False))
+        if is_train:
+            # gradient scrubbing at the rollout boundary (reference
+            # remove_nan/clamp, dp_model.py:1294-1384)
+            scrub = scrub_grad_ref if quirks else scrub_grad
+            sim_q, sim_qd, grfs, jafs = rollout_soa(
+                self.integrator, sp, state0, scrub(ref_ja), scrub(torques),
+                scrub(res_f), self.dt, sub, interval_fn=self._interval(),
+            )
+        else:
+            # torques and residual forces are structurally zero: the window
+            # takes acts as None and has no residual input
+            sim_q, sim_qd, grfs, jafs = self._window(self.frames_per_wdw)(
+                state0, ref_ja, None, sp)
+        sim_position = sim_q.transpose(0, 1)  # (E, F, B, 7)
+        sim_velocity = swap_lin_ang(sim_qd.transpose(0, 1))
+
+        foot_height = self.get_foot_height(queried_position)
+
+        # ---- losses (reference dp_model.py:775-838)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        loss_dict = {}
+        loss_traj = se3_loss(sim_position, target_position).mean(-1)
+        loss_traj = torch.where(outseq, zero, loss_traj)
+        loss_dict["traj"] = reduce_loss(loss_traj, clip=True, env0_th=quirks)
+        loss_pos = se3_loss(queried_position, sim_position.detach()).mean(-1)
+        loss_dict["pos_state"] = reduce_loss(torch.where(outseq, zero, loss_pos))
+        loss_vel = se3_loss(queried_velocity, sim_velocity.detach()).mean(-1)
+        loss_dict["vel_state"] = reduce_loss(torch.where(outseq, zero, loss_vel))
+        loss_dict["pos_distill"] = zero  # the lab4d coupling's distillation
+        loss_dict["reg_torque"] = torch.mean(batch["torques"] ** 2)
+        loss_dict["reg_res_f"] = torch.mean(batch["res_f"] ** 2)
+        loss_dict["reg_foot"] = torch.mean(foot_height ** 2)
+
+        total = zero
+        for i, k in enumerate(LOSS_KEYS):
+            total = total + loss_dict[k] * weights[i]
+        out = {"loss_" + k: v for k, v in loss_dict.items()}
+        out["total_loss"] = total
+        aux = dict(
+            sim_traj=sim_q[:, 0],  # (F, B, 7) env 0, for vis
+            target_traj=target_position[0],
+            pid_ref=queried_position[0],
+            grf=grfs[:, 0],  # warp layout [torque, force]
+            jaf=jafs[:, 0],
+        )
+        return out, aux
+
+    # ------------------------------------------------------------------
+    # host-side train loop API (reference method surface)
+    # ------------------------------------------------------------------
+    def set_progress(self, num_iters):
+        self.progress = num_iters / self.total_iters
+        self.set_loss_weight("reg_cam_prior_wt", (0, 0.5), (1, 0), self.progress)
+
+    def set_loss_weight(self, loss_name, anchor_x, anchor_y, current_steps, type="linear"):
+        if loss_name not in self.opts:
+            return
+        if "%s_init" % loss_name not in self.opts:
+            self.opts["%s_init" % loss_name] = self.opts[loss_name]
+        factor = interp_wt(anchor_x, anchor_y, current_steps, type=type)
+        self.opts[loss_name] = self.opts["%s_init" % loss_name] * factor
+
+    def _weights_vec(self):
+        return [float(self.opts.get(k + "_wt", 0.0)) for k in LOSS_KEYS]
+
+    def compute_frame_start(self):
+        u = torch.rand((self.num_envs,), generator=self.generator)
+        return torch.round(u * (self.total_frames - self.frames_per_wdw)).to(self.device)
+
+    def forward(self, frame_start=None):
+        """One forward; in train mode also computes and accumulates the
+        gradients (``backward`` is a no-op, as in the JAX package)."""
+        if frame_start is None:
+            frame_start = self.compute_frame_start()
+        else:
+            frame_start = torch.as_tensor(
+                np.asarray(frame_start, np.float32), device=self.device)[: self.num_envs]
+        w = self._weights_vec()
+        if self.is_eval:
+            with torch.no_grad():
+                out, aux = self._forward_pure(self.params, frame_start, self.progress, w, False)
+            self._store_eval_aux(aux)
+            return out
+        tensors = [t for _, t in self._trainable]
+        for k in PARAM_NAMES:
+            self.params[k].requires_grad_(True)
+        try:
+            out, _ = self._forward_pure(self.params, frame_start, self.progress, w, True)
+            grads = torch.autograd.grad(out["total_loss"], tensors, allow_unused=True)
+        finally:
+            for k in PARAM_NAMES:
+                self.params[k].requires_grad_(False)
+        grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, tensors)]
+        # per-tensor norms over trainable tensors: the reference's grad queue
+        # keys are per named parameter (dp_model.py:969-975)
+        norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+        gnorm = torch.sqrt(torch.sum(norms ** 2))
+        self._grad_accum.append((grads, norms, gnorm))
+        return {k: v.detach() for k, v in out.items()}
+
+    def _store_eval_aux(self, aux):
+        self.sim_trajs = aux["sim_traj"].cpu().numpy()
+        self.target_trajs = aux["target_traj"].cpu().numpy()
+        self.pid_ref = aux["pid_ref"].cpu().numpy()
+        self.grfs = aux["grf"].cpu().numpy()
+        self.jafs = aux["jaf"].cpu().numpy()
+        self._check_hull_contacts(self.sim_trajs)
+
+    def _check_hull_contacts(self, body_q):
+        """'hull' contact candidates are exact only while no interior mesh
+        vertex crosses the ground plane (builder.validate_hull_contacts).
+        On a violation beyond the margin, fall back to the every-vertex
+        contact set for all later rollouts (contact_fallback=False warns
+        only)."""
+        if self.env.contact_mode != "hull":
+            return
+        viol = self.env.validate_hull_contacts(body_q)
+        margin = float(self.opts.get("hull_fallback_margin", 3e-3))
+        if viol <= margin:
+            return
+        print("hull-contact assumption violated (interior vertex %.4f m below "
+              "ground)" % viol)
+        if self.opts.get("contact_fallback", True):
+            print("falling back to contact_mode='all' (reference-exact)")
+            self.env.make_ground_contacts("all")
+            self.integrator = SemiImplicitIntegrator(self.env)
+            self._kernels.clear()
+
+    def backward(self, loss):
+        """No-op bridge: gradients were produced in forward()."""
+        return
+
+    # ------------------------------------------------------------------
+    # optimizer (reference add_optimizer/get_lr_dict, dp_model.py:429-509)
+    # ------------------------------------------------------------------
+    def get_lr_dict(self):
+        lr_base = self.opts["phys_learning_rate"]
+        lr_explicit = lr_base * 10
+        param_lr_startwith = {
+            "global_q": lr_explicit,
+            "target_ke": lr_explicit,
+            "target_kd": lr_explicit,
+            "attach_ke": lr_explicit,
+            "attach_kd": lr_explicit,
+            "body_mass": lr_explicit,
+            "root_pose_mlp": lr_base,
+            "joint_angle_mlp": lr_base,
+            "vel_mlp": lr_base,
+            "torque_mlp": lr_base,
+            "residual_f_mlp": lr_base,
+        }
+        param_lr_with = {"root_pose_mlp.base_quat": lr_explicit}
+        return param_lr_startwith, param_lr_with
+
+    def named_tensors(self):
+        """(dotted name, tensor) of every parameter tensor, named by the JAX
+        package's parameter-tree paths (``root_pose_mlp.trunk.linear_1.kernel``)."""
+        out = [(k, self.params[k]) for k in PARAM_NAMES]
+        for m in MLP_NAMES:
+            for k, t in self.modules[m].named_parameters():
+                out.append((m + "." + ".".join(jax_param_path(k)[0]), t))
+        return out
+
+    def _param_lr(self, name):
+        """Peak lr of a dotted tensor name: 'with' matches take priority over
+        'startwith' (reference match_param_name, dp_model.py:478-509)."""
+        startwith, withmap = self.get_lr_dict()
+        matched_loose, lr_loose = match_param_name(name, withmap, "with")
+        matched, lr = match_param_name(name, startwith, "startwith")
+        if matched_loose:
+            return lr_loose
+        return lr if matched else 0.0
+
+    def add_optimizer(self, opts):
+        total = max(2, self.total_iters)
+        pct_start = 2.0 / total
+        div, final_div = 25.0, 100.0
+        f32 = np.float32
+
+        def onecycle(step):
+            # torch OneCycleLR with linear anneal and its phase boundaries
+            # (warmup ends at pct_start*total - 1, the anneal at total - 1),
+            # in the JAX package's fp32 lerp form
+            end1 = f32(max(pct_start * total - 1.0, 1e-6))
+            end2 = f32(max(total - 1.0, 1.0))
+            t = min(f32(step), end2)
+            init, fin = f32(1.0 / div), f32(1.0 / (div * final_div))
+            if t <= end1:
+                f1 = t / end1
+                return float((f32(1.0) - f1) * init + f1 * f32(1.0))
+            f2 = (t - end1) / (end2 - end1)
+            return float((f32(1.0) - f2) * f32(1.0) + f2 * fin)
+
+        self._lr_schedule = onecycle
+        self._trainable = []
+        groups = []
+        for name, t in self.named_tensors():
+            lr = self._param_lr(name)
+            if lr > 0:
+                self._trainable.append((name, t))
+                groups.append({"params": [t], "lr": lr, "peak_lr": lr})
+        self.param_peak_lr = {}
+        for name, _ in self.named_tensors():
+            top = name.split(".")[0]
+            self.param_peak_lr[top] = max(self.param_peak_lr.get(top, 0.0), self._param_lr(name))
+        for top, lr in sorted(self.param_peak_lr.items()):
+            if lr > 0:
+                n = sum(1 for name, _ in self._trainable if name.split(".")[0] == top)
+                print("%-24s lr=%g (%d tensors)" % (top, lr, n))
+        # scale_by_adam + add_decayed_weights(1e-4) + per-group lr x schedule
+        # is AdamW (tests/test_optimizer_parity.py)
+        self.optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
+                                           weight_decay=1e-4)
+        self._sched_step = 0  # the schedule's own count (advances on rollback too)
+
+    def check_grad(self, thresh=10.0):
+        """Aggregate the accumulated gradients, run the grad-norm rollback
+        and per-tensor median-queue clipping, and stage the surviving
+        (grads, scales) for update(). Returns the grad-statistics dict ({}
+        when the step was rolled back)."""
+        assert self._grad_accum, "forward() must run before update()"
+        n = len(self._grad_accum)
+        if n == 1:
+            grads, norms_dev, gnorm_dev = self._grad_accum[0]
+        else:
+            grads = [sum(gs) / n for gs in zip(*(a[0] for a in self._grad_accum))]
+            norms_dev = sum(a[1] for a in self._grad_accum) / n
+            gnorm_dev = sum(a[2] for a in self._grad_accum) / n
+        # one host transfer for all grad statistics
+        stats = torch.cat([gnorm_dev[None], norms_dev]).cpu().tolist()
+        gnorm = float(stats[0])
+        norms = {name: float(v) for (name, _), v in zip(self._trainable, stats[1:])}
+        self._grad_accum = []
+        res = self.check_grad_dict(grads, norms, gnorm, thresh)
+        if res is None:
+            self._pending_update = None
+            return {}
+        scales, grad_dict = res
+        self._pending_update = (grads, scales)
+        return grad_dict
+
+    def update(self):
+        """Grad safety then the optimizer step (reference update,
+        dp_model.py:511-516)."""
+        grad_dict = self.check_grad()
+        if self._pending_update is None:
+            return grad_dict
+        grads, scales = self._pending_update
+        self._pending_update = None
+        for (name, t), g in zip(self._trainable, grads):
+            t.grad = g * self._scale_of(name, scales)
+        sched = self._lr_schedule(self._sched_step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = group["peak_lr"] * sched
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        self._sched_step += 1
+        return grad_dict
+
+    def check_grad_dict(self, grads, norms, gnorm, thresh=10.0):
+        """Grad-norm rollback + per-tensor median-queue clipping
+        (reference check_grad, dp_model.py:936-999)."""
+        if not np.isfinite(gnorm) or gnorm > thresh:
+            print("large grad: %.2f, clear gradients" % gnorm)
+            if self.model_cache[0] is not None:
+                print("fallback to cached model")
+                self._restore(self.model_cache[0], self.optimizer_cache[0])
+            # the reference steps its LR scheduler on a rolled-back iter
+            # while AdamW skips the params: advance the schedule count only
+            self._sched_step += 1
+            return None
+
+        grad_dict = {}
+        scales = {}
+        queue_length = 10
+        for name, g in norms.items():
+            grad_dict["grad/" + name] = g
+            scales[name] = 1.0
+            scale_threshold = 5.0
+            q = self.grad_queue.setdefault(name, [])
+            if len(q) > queue_length:
+                # torch.median semantics (dp_model.py:989): the LOWER middle
+                # element of the even-length slice
+                arr = np.sort(np.asarray(q[:-1]))
+                med = float(arr[(len(arr) - 1) // 2])
+                grad_dict["grad_med/" + name] = med
+                if g > scale_threshold * med and g > 0:
+                    scales[name] = med / g
+                    print("large grad: %.2f, clear %s" % (g, name))
+                else:
+                    q.append(g)
+                    q.pop(0)
+            else:
+                q.append(g)
+        return scales, grad_dict
+
+    @staticmethod
+    def _scale_of(name, scales):
+        """Exact dotted name first, else the longest dotted-prefix match,
+        else 0 (JAX phys_model._scales_tree)."""
+        if name in scales:
+            return scales[name]
+        best, blen = 0.0, -1
+        for k, v in scales.items():
+            if name.startswith(k + ".") and len(k) > blen:
+                best, blen = v, len(k)
+        return best
+
+    def clear_grad(self):
+        self._grad_accum = []
+        if self.model_cache[0] is not None:
+            print("fallback to cached model")
+            self._restore(self.model_cache[0], self.optimizer_cache[0])
+
+    def _restore(self, state_np, opt_cache):
+        self.load_params_from_jax(state_np)
+        opt_state, sched_step = opt_cache
+        self.optimizer.load_state_dict(copy.deepcopy(opt_state))
+        self._sched_step = sched_step
+
+    # ------------------------------------------------------------------
+    # checkpoints (reference dp_model.py:912-934)
+    # ------------------------------------------------------------------
+    def state_np(self):
+        """The parameters as the JAX package's checkpoint tree: numpy
+        arrays, the MLPs as flax-layout parameter trees."""
+        out = {k: self.params[k].detach().cpu().numpy().copy() for k in PARAM_NAMES}
+        for m in MLP_NAMES:
+            out[m] = timemlp_params_to_jax(self.modules[m])
+        return out
+
+    def save_checkpoint(self, steps_count):
+        self.model_cache[0] = self.model_cache[1]
+        self.optimizer_cache[0] = self.optimizer_cache[1]
+        self.model_cache[1] = self.state_np()
+        self.optimizer_cache[1] = (copy.deepcopy(self.optimizer.state_dict()), self._sched_step)
+        os.makedirs(self.save_dir, exist_ok=True)
+        save_dict = self.model_cache[1]
+        for name in ("ckpt_phys_%04d.pth" % steps_count, "ckpt_phys_latest.pth"):
+            with open(os.path.join(self.save_dir, name), "wb") as f:
+                pickle.dump(save_dict, f)
+
+    # ------------------------------------------------------------------
+    # query for visualization (reference dp_model.py:843-902)
+    # ------------------------------------------------------------------
+    def query(self, img_size=None):
+        part_com = torch.as_tensor(self.env.body_com, dtype=torch.float32)
+        part_mass = torch.as_tensor(self.env.body_mass, dtype=torch.float32)
+        com = lambda t: compute_com(torch.as_tensor(t), part_com, part_mass).numpy()
+        data = {
+            "sim_traj": self.sim_trajs,  # (F, B, 7)
+            "target_traj": self.target_trajs,
+            "control_ref": self.pid_ref,
+            "grf": self.grfs,
+            "com": np.stack([com(t) for t in self.sim_trajs], 0),
+            "com_k": [com(t) for t in self.target_trajs],
+            "body_mass": self.params["body_mass"].detach().cpu().numpy(),
+        }
+        verts = self._mesh_verts
+        data["max_w"] = 3 * np.abs(verts[:, [0, 2]]).max()
+        return data

@@ -220,3 +220,12 @@ def quat_to_compound(q: torch.Tensor) -> torch.Tensor:
     b = kernel_math.asin(torch.clamp(m[..., 0, 2], -1.0 + 1e-7, 1.0 - 1e-7))
     c = kernel_math.atan2(-m[..., 0, 1], m[..., 0, 0])
     return torch.stack([a, b, c], dim=-1)
+
+
+def rot_angle(m: torch.Tensor) -> torch.Tensor:
+    """Rotation angle of rotation matrix(es), clamped like the reference
+    (diffphys/geom_utils.py:37-46)."""
+    eps = 1e-4
+    cos = (m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2] - 1.0) * 0.5
+    cos = torch.clamp(cos, -1.0 + eps, 1.0 - eps)
+    return torch.arccos(cos)

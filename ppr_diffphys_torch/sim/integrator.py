@@ -1,11 +1,14 @@
 """Semi-implicit (symplectic) Euler integrator in plain PyTorch, counterpart
 of ``ppr_diffphys_tpu/sim/integrator.py`` (forward only).
 
-This is the **plain version** of the serving window kernel
-(``csrc/soa_window.cu``, wrapped by ``sim/soa.py``): CPU tensors run
-through it, and on the card it is what the kernel is checked against.
+This is the **plain version** of the port's kernels: ``rollout`` of the
+serving window (``csrc/soa_window.cu``, wrapped by ``sim/soa.py``) and
+``interval`` of the training interval pair (``csrc/soa_interval.cu``,
+wrapped by ``sim/soa_grad.py``; its gradients are autograd's). CPU tensors
+run through it, and on the card it is what the kernels are checked against.
 Quantities are batched over (env E, body B); gathers are plain indexing and
-the contact/parent scatters are ``index_add_``.
+the contact/parent scatters are ``index_add_``. Every function is
+differentiable end to end with autograd.
 
 Numerical-safety clamps of the reference are kept: body velocity ±10,
 contact force ±500, compound torque/attach ±10000, 0.1/s angular damping,
@@ -156,11 +159,13 @@ def eval_body_contacts(model: ArticulationModel, params: SimParams, state: SimSt
 
 def eval_body_joints(model: ArticulationModel, params: SimParams, state: SimState,
                      joint_target: torch.Tensor,
-                     joint_act: Optional[torch.Tensor]):
+                     joint_act: Optional[torch.Tensor], gains3=None):
     """Joint PD + limit + attachment-spring forces over (E, B). Joint i
     connects parent[i] -> body i; FREE roots contribute nothing.
 
     joint_target/joint_act: (E, n_qd); joint_act None means zero.
+    gains3: optional (ke, kd) per joint angle, (B, 3) or (E, B, 3), in place
+    of ``params.joint_target_ke/kd`` (the kernels' gains plane layout).
     Returns (E, B, 6) accumulated [torque, force]."""
     dev = state.body_q.device
     E, B = state.body_q.shape[0], model.n_links
@@ -208,8 +213,11 @@ def eval_body_joints(model: ArticulationModel, params: SimParams, state: SimStat
     tgt = joint_target[:, didx]  # (E, B, 3)
     act = joint_act[:, didx] if joint_act is not None else torch.zeros_like(tgt)
     # gains may be (n_qd,) shared or (E, n_qd) per-env
-    ke3 = params.joint_target_ke[..., didx]  # (B,3) or (E,B,3)
-    kd3 = params.joint_target_kd[..., didx]
+    if gains3 is None:
+        ke3 = params.joint_target_ke[..., didx]  # (B,3) or (E,B,3)
+        kd3 = params.joint_target_kd[..., didx]
+    else:
+        ke3, kd3 = gains3
     lo3 = _f32(model.joint_limit_lower[dof_np], dev)
     hi3 = _f32(model.joint_limit_upper[dof_np], dev)
     lke3 = _f32(model.joint_limit_ke[dof_np], dev)
@@ -344,7 +352,8 @@ class SemiImplicitIntegrator:
     def __init__(self, model: ArticulationModel):
         self.model = model
 
-    def compute_forces(self, params, state, joint_target, joint_act, res_f):
+    def compute_forces(self, params, state, joint_target, joint_act, res_f,
+                       gains3=None):
         """Returns (body_f, grf, jaf): grf is the accumulated force after
         contacts (incl. residual forces), jaf the joint-only increment."""
         model = self.model
@@ -354,7 +363,8 @@ class SemiImplicitIntegrator:
         if model.contact_count > 0 and model.ground:
             body_f = body_f + eval_body_contacts(model, params, state)
         grf = body_f
-        body_f = body_f + eval_body_joints(model, params, state, joint_target, joint_act)
+        body_f = body_f + eval_body_joints(model, params, state, joint_target, joint_act,
+                                           gains3)
         jaf = body_f - grf
         return body_f, grf, jaf
 
@@ -365,10 +375,10 @@ class SemiImplicitIntegrator:
         )
         return integrate_bodies(self.model, params, state, body_f, dt), grf, jaf
 
-    def step_only(self, params, state, joint_target, joint_act, res_f, dt):
+    def step_only(self, params, state, joint_target, joint_act, res_f, dt, gains3=None):
         """Substep without observables."""
         body_f, _, _ = self.compute_forces(
-            params, state, joint_target, joint_act, res_f
+            params, state, joint_target, joint_act, res_f, gains3
         )
         return integrate_bodies(self.model, params, state, body_f, dt)
 
@@ -422,3 +432,54 @@ def rollout(
     jafs.append(jaf_l)
     return (torch.stack(qs, 0), torch.stack(qds, 0),
             torch.stack(grfs, 0), torch.stack(jafs, 0))
+
+
+def plane_params(gains, inv_m, inertia, inv_inertia, E: int):
+    """The traced parameter planes (``sim/soa.py:traced_planes`` layout,
+    lane 1 shared or lane E per-env) as the arguments the plain substep
+    takes: (SimParams with inverse mass and inertias, (ke, kd) per joint
+    angle). Differentiable."""
+    def per_env(p):
+        return p.shape[-1] == E and E > 1
+
+    if per_env(gains):  # (2,3,B,E) -> (E,B,3)
+        ke3, kd3 = gains[0].permute(2, 1, 0), gains[1].permute(2, 1, 0)
+    else:
+        ke3, kd3 = gains[0, ..., 0].T, gains[1, ..., 0].T
+    im = inv_m.T if per_env(inv_m) else inv_m[:, 0]
+
+    def mat(p):  # (3,3,B,L) -> (E,B,3,3) | (B,3,3)
+        return p.permute(3, 2, 0, 1) if per_env(p) else p[..., 0].permute(2, 0, 1)
+
+    params = SimParams(
+        body_mass=None, body_inv_mass=im, body_inertia=mat(inertia),
+        body_inv_inertia=mat(inv_inertia), joint_target_ke=None, joint_target_kd=None,
+    )
+    return params, (ke3, kd3)
+
+
+def interval(integrator: SemiImplicitIntegrator, dt: float, bq, bqd, tgt, act, res,
+             gains, inv_m, inertia, inv_inertia, export: bool = False):
+    """One frame interval of S substeps in the kernels' plane layout: the
+    plain version of ``csrc/soa_interval.cu`` (K2 forward; autograd through
+    it is K3's plain version).
+
+    bq (7,B,E), bqd (6,B,E), tgt (S,n_qd,E), act (S,n_qd,E) or None (zero),
+    res (S,6,B,E) [torque, force] or None (zero), and the four parameter
+    planes. Returns (bq', bqd'); with ``export``, also the state entering
+    each substep, detached, in K2's export layout (S,13,B,E)."""
+    E = bq.shape[-1]
+    params, gains3 = plane_params(gains, inv_m, inertia, inv_inertia, E)
+    state = SimState(bq.permute(2, 1, 0), bqd.permute(2, 1, 0))
+    entries = []
+    for i in range(tgt.shape[0]):
+        if export:
+            entries.append(torch.cat([state.body_q, state.body_qd], -1).detach().permute(2, 1, 0))
+        state = integrator.step_only(
+            params, state, tgt[i].T,
+            None if act is None else act[i].T,
+            None if res is None else res[i].permute(2, 1, 0),
+            dt, gains3,
+        )
+    out = state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0)
+    return out + (torch.stack(entries, 0).contiguous(),) if export else out

@@ -14,7 +14,7 @@ import torch
 
 from ppr_diffphys_torch.csrc import build as kbuild
 from ppr_diffphys_torch.sim import integrator as tint
-from ppr_diffphys_torch.sim import soa, synthetic
+from ppr_diffphys_torch.sim import soa, soa_grad, synthetic
 import ppr_diffphys_torch.sim.builder as tbuilder
 import ppr_diffphys_torch.sim.import_urdf as timport
 from ppr_diffphys_torch.sim.kinematics import eval_fk
@@ -26,7 +26,7 @@ DT, SUB = 5e-4, 33
 
 def _need_gpu():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the soa_window kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the port's CUDA kernels have no CPU mode")
 
 
 def _model(name):
@@ -50,11 +50,25 @@ def _inputs(model, E, F, per_env, dev, seed=5):
 def test_library_path_tracks_the_source():
     """The built library's name carries a hash of the source and flags, in
     the package's git-ignored build directory."""
-    p = kbuild.library_path(soa.KERNEL)
-    assert p.parent == kbuild.BUILD_DIR
-    assert p.name.startswith("libsoa_window-") and p.suffix == ".so"
+    for name in (soa.KERNEL, soa_grad.KERNEL):
+        p = kbuild.library_path(name)
+        assert p.parent == kbuild.BUILD_DIR
+        assert p.name.startswith("lib%s-" % name) and p.suffix == ".so"
     assert "--use_fast_math" not in kbuild.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kbuild.NVCC_FLAGS
+
+
+def test_library_path_tracks_the_shared_header(tmp_path, monkeypatch):
+    """An edit to csrc/substep.cuh renames (so rebuilds) both libraries."""
+    for f in kbuild.SRC_DIR.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kbuild, "SRC_DIR", tmp_path)
+    before = {n: kbuild.library_path(n) for n in (soa.KERNEL, soa_grad.KERNEL)}
+    with open(tmp_path / "substep.cuh", "a") as f:
+        f.write("\n// edited\n")
+    for n, p in before.items():
+        assert kbuild.library_path(n) != p
 
 
 @pytest.mark.cuda
@@ -92,3 +106,156 @@ def test_server_on_cuda_runs_the_kernel():
     assert server.window.launches == 1
     assert out.is_cuda and out.shape == (4, 32, 13, 7)
     assert torch.isfinite(out).all()
+
+
+def _interval_case(model, E, per_env, dev, seed=7):
+    """Seeded inputs of one 33-substep interval in plane layout, with
+    penetrating contacts, plus loss weights."""
+    state, tgt, act, params = _inputs(model, E, 2, per_env, dev, seed)
+    rng = np.random.RandomState(seed)
+    B = model.n_links
+    t = lambda x: torch.as_tensor(x.astype(np.float32), device=dev)
+    res = t(rng.randn(SUB, 6, B, E) * 0.1)
+    w = (t(rng.randn(7, B, E)), t(rng.randn(6, B, E)))
+    return state, tgt, act, res, params, w
+
+
+def _planes(model, params):
+    """Leaves (ke, kd, mass) and the four traced planes built from them."""
+    ke = params.joint_target_ke.clone().requires_grad_()
+    kd = params.joint_target_kd.clone().requires_grad_()
+    mass = params.body_mass.clone().requires_grad_()
+    I = params.body_inertia / params.body_mass[..., None, None] * mass[..., None, None]
+    p = tint.SimParams(mass, 1.0 / mass, I, torch.linalg.inv(I), ke, kd)
+    planes = soa.traced_planes(model, p)
+    return [ke, kd, mass], [planes[n] for n in soa.TRACED_NAMES]
+
+
+def _state_inputs(state, tgt, act, res):
+    return [state.body_q.permute(2, 1, 0).contiguous().requires_grad_(),
+            state.body_qd.permute(2, 1, 0).contiguous().requires_grad_(),
+            tgt[:SUB].permute(0, 2, 1).contiguous().requires_grad_(),
+            act[:SUB].permute(0, 2, 1).contiguous().requires_grad_(),
+            res.clone().requires_grad_()]
+
+
+def _interval_grads(model, fn, state, tgt, act, res, params, w):
+    leaves, planes = _planes(model, params)
+    ins = _state_inputs(state, tgt, act, res)
+    q, qd = fn(*ins, *planes)
+    loss = (q * w[0]).sum() + (qd * w[1]).sum()
+    return q, qd, torch.autograd.grad(loss, ins + leaves)
+
+
+def _linearized_grads(model, di, state, tgt, act, res, params, w):
+    """Gradients of sum(w * outputs) by autograd of the plain interval and
+    by K3 fed the plain forward's own substep entry states, with the planes
+    widened to one lane per env: (plain, kernel) lists over bq0, bqd0, tgt,
+    act, res and the four planes (per env). Shared planes also go through
+    K3's env reduction, which must match the float64 sum of the per-env
+    partials within twice the bound of recursive fp32 summation."""
+    _, planes = _planes(model, params)
+    ins = _state_inputs(state, tgt, act, res)
+    E = ins[0].shape[-1]
+    wide = [p.detach().expand(*p.shape[:-1], E).contiguous().requires_grad_() for p in planes]
+    q, qd, sst = tint.interval(di.integrator, DT, *ins, *wide, export=True)
+    plain = torch.autograd.grad((q * w[0]).sum() + (qd * w[1]).sum(), ins + wide)
+    seq = [x.detach() for x in ins[2:]]
+    *kern, dwide = di._backward(sst, *seq, [x.detach() for x in wide], w[0], w[1])
+    if all(p.shape[-1] == E for p in planes):
+        return plain, kern + list(dwide)
+    reduced = di._backward(sst, *seq, [p.detach() for p in planes], w[0], w[1])[5]
+    for p, s, g in zip(planes, reduced, dwide):
+        if p.shape[-1] == 1:
+            g64 = g.double()
+            bound = 2 * (E - 1) * 2.0 ** -24 * g64.abs().sum(-1, keepdim=True)
+            assert ((s.double() - g64.sum(-1, keepdim=True)).abs() <= bound).all()
+    return plain, kern + list(dwide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_env", [False, True], ids=["shared", "per_env"])
+@pytest.mark.parametrize("name", ["a1", "chain"])
+def test_interval_kernels_match_plain(name, per_env):
+    """K2 values and K3 gradients against autograd of the plain interval on
+    the card, one 33-substep interval with acts and residual forces.
+    Tolerance: values as the window's. Gradients as in chip_smoke.py:
+    (a) K3 on the plain forward's own substep states: every entry of every
+    gradient, per-env plane partials included, within 1e-4 of the
+    gradient's largest entry; (b) end to end, where each side differentiates
+    its own forward and FMA rounding can carry one env across a contact kink
+    (its adjoint then jumps; measured ~1e-6 elsewhere): per env within 1e-3,
+    except at most 2 of the 64 envs, every entry within 0.1, and gradients
+    summed over the envs (shared ke, kd, mass) within 1e-3."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model(name)
+    case = _interval_case(model, 64, per_env, dev)
+    integ = tint.SemiImplicitIntegrator(model)
+    di = soa_grad.DiffInterval(integ, DT, SUB, with_res=True, with_act=True)
+    qa, qda, ga = _interval_grads(
+        model, lambda *a: tint.interval(integ, DT, *a), *case)
+    qb, qdb, gb = _interval_grads(model, di, *case)
+    torch.cuda.synchronize()
+    assert di.launches["soa_interval_fwd"] == 1 and di.launches["soa_interval_bwd"] == 1
+    assert di.launches["soa_interval_reduce"] == (0 if per_env else 1)
+    torch.testing.assert_close(qb, qa, rtol=0, atol=1e-5)
+    torch.testing.assert_close(qdb, qda, rtol=0, atol=5e-3)
+    rel = lambda a, b: (a - b).abs() / (float(a.abs().max()) + 1e-12)
+    E = qa.shape[-1]
+    names = ["bq0", "bqd0", "tgt", "act", "res"] + list(soa.TRACED_NAMES)
+    for n, a, b in zip(names, *_linearized_grads(model, di, *case)):
+        assert torch.isfinite(b).all(), n
+        assert float(rel(a, b).max()) <= 1e-4, n
+    for n, a, b in zip(["bq0", "bqd0", "tgt", "act", "res", "ke", "kd", "mass"], ga, gb):
+        assert torch.isfinite(b).all(), n
+        d = rel(a, b)
+        if n in ("ke", "kd", "mass") and not per_env:
+            assert float(d.max()) <= 1e-3, n  # summed over the envs
+            continue
+        assert float(d.max()) <= 0.1, n
+        env_err = d.reshape(E, -1).amax(1) if n in ("ke", "kd", "mass") else d.reshape(
+            -1, E).amax(0)
+        assert int((env_err > 1e-3).sum()) <= 2, n
+
+
+@pytest.mark.cuda
+def test_interval_chain_equals_window_bitwise():
+    """K2 chained over the intervals of a window gives K1's frame states bit
+    for bit: both run substep.cuh."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model("a1")
+    F = 3
+    state, tgt, act, params = _inputs(model, 64, F, False, dev)
+    integ = tint.SemiImplicitIntegrator(model)
+    ref = soa.SoaWindow(integ, DT, SUB, F)(state, tgt, None, params)
+    di = soa_grad.DiffInterval(integ, DT, SUB)
+    planes = soa.traced_planes(model, params)
+    bq, bqd = state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0)
+    tp = tgt.permute(0, 2, 1).contiguous()
+    with torch.no_grad():
+        for f in range(F - 1):
+            bq, bqd = di(bq, bqd, tp[f * SUB:(f + 1) * SUB], None, None,
+                         *(planes[n] for n in soa.TRACED_NAMES))
+            assert torch.equal(bq.permute(2, 1, 0), ref[0][f + 1])
+            assert torch.equal(bqd.permute(2, 1, 0), ref[1][f + 1])
+
+
+@pytest.mark.cuda
+def test_cuda_interval_raises_without_its_library(monkeypatch):
+    """A CUDA tensor never takes the plain path: a missing library raises."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model("chain")
+    state, tgt, _, params = _inputs(model, 8, 2, False, dev)
+
+    def missing(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kbuild, "load", missing)
+    di = soa_grad.DiffInterval(tint.SemiImplicitIntegrator(model), DT, SUB)
+    planes = soa.traced_planes(model, params)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        di(state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0),
+           tgt[:SUB].permute(0, 2, 1), None, None, *(planes[n] for n in soa.TRACED_NAMES))

@@ -122,10 +122,13 @@ for m in mods:
     importlib.import_module(m)
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ppr_diffphys_tpu") and sys.modules[n] is not None]
 assert not bad, bad
-print(len(mods))
+print(" ".join(mods))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    mods = out.stdout.split()
+    assert len(mods) >= 24
+    for m in ("sim.soa_grad", "models.losses", "models.phys_model", "main"):
+        assert "ppr_diffphys_torch." + m in mods, m
