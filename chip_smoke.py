@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero):
  1. device: torch's device name, and name + power limit from nvidia-smi;
- 2. build: every CUDA kernel (soa_window, soa_interval) with nvcc (sm_90a),
+ 2. build: every CUDA kernel (soa_window, soa_interval, soa_rollout) with
+    nvcc (sm_90a),
     one nvcc per source, all started together, timed, with ptxas' registers,
     stack and spills;
  3. kernel vs plain: the soa_window kernel against its plain PyTorch
@@ -35,7 +36,27 @@ Phases (any failure exits non-zero):
     plain interval with autograd there; last the training loop's
     full-sequence eval (1 env, K1, no gradient), its launch count read, and
     K1 held against the plain rollout on that eval's inputs;
- 7. a ``kernels`` JSON line, the nvidia-smi line, and as the last line
+ 7. the bench rollout kernel K4 (soa_rollout) vs plain
+    (integrator.rollout_substeps) on a1 and the chain, shared planes, E=256,
+    33 substeps, penetrating contacts, random and zero acts; K4's final
+    state equal to K2's (soa_interval_fwd without export) bit for bit, no
+    acts equal to zero acts, per-env parameters rejected, K4 timed;
+ 8. the bench main path through ppr_diffphys_torch.bench's own functions,
+    on a1 at the bench's width: rollout, 4096 envs x 990 substeps (30 K4
+    calls of 33 substeps per rep), one warm-up and 3 timed reps with the
+    launch count set to 0 just before and read just after (exactly 30 per
+    rep), the busy share of one profiled rep, K4 alone on the main path's
+    inputs timed and held against plain, and a whole rep held against plain
+    on 64 envs; train, 4096 envs x 10 intervals of 33 substeps, the same
+    way (exactly 10 K2, K3 and reduction launches per rep, finite loss,
+    finite non-zero gradients), K2 values and K3 gradients (every env, and
+    the env reduction over the 4096 envs' partials) at the plain
+    linearization on the first and the last interval's own inputs, then
+    the same workload at 8 envs against
+    the plain version on the CPU; last K2 values and K3 gradients of one
+    83-substep interval (the 24 Hz case) at E=256 at the plain
+    linearization point;
+ then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX. Without a GPU, or run from a directory that
@@ -44,18 +65,18 @@ lacks the repository, it exits non-zero and prints no result.
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
 E_MAIN, F_MAIN, SEED = 4096, 24, 0
 E_CHECK, F_CHECK = 256, 4
 E_TRAIN, F_TRAIN = 512, 24
+BENCH_STEPS = 990  # the bench's substeps per rep (ppr_diffphys_torch/bench.py)
+E_DEEP = 64  # envs of the bench rollout held against plain over a whole rep
+E_SMALL = 8  # envs of the bench training workload held against plain on the CPU
 
 # Kernel vs plain tolerances (absolute). Both run fp32 on the card; the
 # kernel contracts multiply-adds into FMAs and sums in another order, so the
@@ -90,6 +111,14 @@ TOL_MAIN = dict(q=1e-4, qd=2e-2, grf=1.0, jaf=3.0)
 #     but one env in each of two of the eight phase-5 configurations
 #     (1.9e-2 there), and up to 3.5e-4 for the env sums of phase 6.
 TOL_INTERVAL = dict(q=1e-5, qd=5e-3)
+# A whole bench rollout rep (990 substeps) against plain: the a1 falls from
+# its 0.417 m start and lands, and the impact on the stiff contacts
+# (ke=1e4 N/m, a force that switches on with the penetration's sign)
+# amplifies the two sides' rounding differences (measured on an H100 80GB
+# HBM3 at 700 W: q 6e-8 until the landing, then 2.4e-5, growing to 1.6e-4
+# and qd 1.5e-3 over 64 envs). Held ~6x above that; the plain rollout's own
+# change when its start moves by 1e-7 is logged beside it as a yardstick.
+TOL_DEEP = dict(q=1e-3, qd=2e-2)
 TOL_GRAD = 1e-4
 TOL_GRAD_SUM = 1e-3
 TOL_GRAD_ENV = 1e-3
@@ -104,16 +133,6 @@ def log(*a):
 def fail(msg):
     print("chip_smoke FAILED: " + msg, file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0:
-        fail("nvidia-smi failed: " + out.stderr.strip())
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_time_ms(fn, reps):
@@ -136,29 +155,9 @@ def profile_steps(step, n, E, F):
     (summed kernel time over the wall; one stream, so kernels do not
     overlap), the device time of the interval kernels, the window kernel,
     matrix products and everything else, and the kernels that take most."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from ppr_diffphys_torch.utils import h100
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-    # device-side events only (the kernels): host ops also carry the device
-    # time of the kernels they launched, and a region annotated on the
-    # device timeline (the optimizer step) spans kernels counted already
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if getattr(e, "is_user_annotation", False):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / n / 1e3, e.count // n, e.key))
-    rows.sort(reverse=True)
+    wall_ms, rows = h100.kernel_times(step, n)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         log("  profiler: no device time recorded; device busy share not measured")
@@ -232,7 +231,8 @@ def linearized_grads(label, di, bq, bqd, tgt, act, leaves, pl, w):
     """Check (a)'s gradients: autograd of the plain interval, and K3 fed the
     plain forward's own substep entry states, with every plane widened to
     one lane per env. For shared planes, also K3 with the lane-1 planes
-    (its env reduction), held to the float64 sum of the per-env partials;
+    (its env reduction), held to the float64 sum of the per-env partials
+    and returned as ``sum_<plane>`` beside the plain gradient's env sum;
     ``leaves`` get their gradients from the reduced planes."""
     import torch
     from ppr_diffphys_torch.sim import integrator as tint
@@ -265,6 +265,9 @@ def linearized_grads(label, di, bq, bqd, tgt, act, leaves, pl, w):
                      "per-env partials by %.3g beyond the fp32 summation bound"
                      % (label, n, excess))
         dplanes = [s if sh else g for s, sh, g in zip(reduced, shared, dwide)]
+        for n, sh, s, g in zip(soa.TRACED_NAMES, shared, reduced, gp[len(ins):]):
+            if sh:  # the env sum, a gradient without an env axis
+                ref["sum_" + n], got["sum_" + n] = g.sum(-1, keepdim=True), s
     if leaves:
         fold = [g.sum(-1, keepdim=True) if sh else g for g, sh in zip(gp[len(ins):], shared)]
         ref.update(zip(leaves, torch.autograd.grad(pl, list(leaves.values()), fold,
@@ -294,19 +297,23 @@ def grad_errors(ref, got, E):
     return out
 
 
-def check_grads(label, gerr, E, linearized):
-    """Check (a) when ``linearized``, else check (b) (see the tolerances)."""
+def check_grads(label, gerr, E, linearized, yard=None):
+    """Check (a) when ``linearized``, else check (b) (see the tolerances).
+    ``yard`` ({name: the plain gradient's own change when the start moves
+    by 1e-7, over its max}) raises check (a)'s limit of each gradient to
+    that change where it is larger."""
     env_tol = TOL_GRAD if linearized else TOL_GRAD_ENV
     shown = {k: [float("%.3g" % v), None if pe is None else int((pe > env_tol).sum())]
              for k, (v, pe) in gerr.items()}
     log("  %s K3 grads %s (max|kernel-plain|/max|plain|, envs beyond %g): %s"
         % (label, "at the plain linearization" if linearized else "end to end", env_tol,
            json.dumps(shown)))
+    y = yard or {}
     for k, (v, pe) in gerr.items():
         if pe is None:
-            ok = v <= TOL_GRAD_SUM
+            ok = v <= max(TOL_GRAD_SUM, y.get(k, 0.0))
         elif linearized:
-            ok = v <= TOL_GRAD
+            ok = v <= max(TOL_GRAD, y.get(k, 0.0))
         else:
             ok = v <= TOL_GRAD_REL and int((pe > TOL_GRAD_ENV).sum()) <= TOL_GRAD_ENVS * E
         if not (np.isfinite(v) and ok):
@@ -314,10 +321,94 @@ def check_grads(label, gerr, E, linearized):
                  % (label, k, v, shown[k][1], env_tol))
 
 
-def record_first_call(obj, method, box):
-    """Wrap ``obj.method`` on this instance only: keep a detached copy of
-    the arguments of its first call in ``box``. ``del obj.<method>``
-    restores the class's."""
+def plain_grads(di, bq, bqd, tgt, pl, w):
+    """Autograd of the plain interval (no acts) for the loss sum(w *
+    outputs), named as ``linearized_grads`` names them: per env, the planes
+    widened to one lane per env, and ``sum_<plane>`` for the shared ones."""
+    import torch
+    from ppr_diffphys_torch.sim import integrator as tint
+    from ppr_diffphys_torch.sim import soa
+
+    E = bq.shape[-1]
+    wide = [p.detach().expand(*p.shape[:-1], E).contiguous().requires_grad_() for p in pl]
+    ins = [x.clone().requires_grad_() for x in (bq, bqd, tgt)]
+    q, qd = tint.interval(di.integrator, di.dt, *ins, None, None, *wide)
+    g = torch.autograd.grad((q * w[0]).sum() + (qd * w[1]).sum(), ins + wide)
+    out = dict(zip(state_names(None) + list(soa.TRACED_NAMES), g))
+    out.update({"sum_" + n: x.sum(-1, keepdim=True)
+                for n, p, x in zip(soa.TRACED_NAMES, pl, g[3:]) if p.shape[-1] == 1})
+    return out
+
+
+def interval_at_width(label, di, call, w, yardstick):
+    """One recorded training interval (the arguments of ``di._forward``):
+    K2's values against the plain interval (TOL_INTERVAL), and K3's
+    gradients, every env and its env reduction, at the plain
+    linearization (check (a)). With ``yardstick``, each gradient's limit is
+    raised to the plain gradient's own change when the interval's start
+    moves by 1e-7 (seeded), where that is larger."""
+    import torch
+    from ppr_diffphys_torch.sim import integrator as tint
+    from ppr_diffphys_torch.sim import soa_grad
+
+    bq, bqd, tgt, act, res, planes = call[:6]
+    if act is not None or res is not None or not all(p.shape[-1] == 1 for p in planes):
+        fail(label + ": the interval got acts, residual forces or per-env planes")
+    E = bq.shape[-1]
+    with torch.no_grad():
+        kq, kqd, sst = di._forward(bq, bqd, tgt, None, None, planes, True)
+        pq, pqd = tint.interval(di.integrator, di.dt, bq, bqd, tgt, None, None, *planes)
+    check_errs(label + " K2 values", {"q": float((kq - pq).abs().max()),
+                                      "qd": float((kqd - pqd).abs().max())}, TOL_INTERVAL)
+    n_act = soa_grad.active_contacts(di.model, sst)
+    del kq, kqd, sst, pq, pqd
+    ref, got = linearized_grads(label, di, bq, bqd, tgt, None, {}, list(planes), w)
+    yard = None
+    if yardstick:
+        rng = np.random.RandomState(SEED + 11)
+        nudge = lambda x: x + 1e-7 * torch.as_tensor(rng.randn(*x.shape).astype(np.float32),
+                                                     device=x.device)
+        moved = plain_grads(di, nudge(bq), nudge(bqd), tgt, planes, w)
+        yard = {k: float((moved[k] - ref[k]).abs().max() / (ref[k].abs().max() + 1e-30))
+                for k in ref}
+        log("  %s yardstick: the plain gradients from a start moved by 1e-7, "
+            "max|moved-plain|/max|plain|: %s"
+            % (label, json.dumps({k: float("%.3g" % v) for k, v in yard.items()})))
+        del moved
+    check_grads(label, grad_errors(ref, got, E), E, linearized=True, yard=yard)
+    log("  %s: %d penetrating contact-substeps; peak device memory %.3f GB"
+        % (label, n_act, torch.cuda.max_memory_allocated() / 1e9))
+
+
+def offset_workload(pbench, E, device, seed):
+    """The bench's workload at E envs with seeded offsets of the joint
+    targets (0.3 rad) and of the initial joint angles about them (0.1 rad).
+    At the bench's own start the joints sit at their targets and the hips
+    at exactly 0 rad, on the polynomial atan2's kink, and a free fall does
+    not depend on mass: there the gains, mass and inertia gradients are
+    rounding noise that a 1e-7 change of the start moves by more than their
+    size. The offsets give them signal."""
+    import torch
+    from ppr_diffphys_torch.sim import integrator as tint
+    from ppr_diffphys_torch.sim.kinematics import eval_fk
+
+    base = pbench.build_workload(envs=E, device="cpu", seed=SEED)
+    rng = np.random.RandomState(seed)
+    n_dof = base.model.n_dof
+    tgt = base.target + torch.as_tensor(np.concatenate(
+        [np.zeros((E, 6)), 0.3 * rng.randn(E, n_dof)], 1).astype(np.float32))
+    qs = np.tile(np.array(base.model.joint_q_init, np.float32)[None], (E, 1))
+    qs[:, 7:] = tgt[:, 6:].numpy() + 0.1 * rng.randn(E, n_dof)
+    st = tint.SimState(*eval_fk(base.model, torch.as_tensor(qs)))
+    work = base if device == "cpu" else pbench.build_workload(envs=E, device=device, seed=SEED)
+    return work._replace(target=tgt.to(device),
+                         state=tint.SimState(st[0].to(device), st[1].to(device)))
+
+
+def record_calls(obj, method, box, n=1):
+    """Wrap ``obj.method`` on this instance only: append a detached copy of
+    the arguments of each of its first ``n`` calls to ``box``, as a list.
+    ``del obj.<method>`` restores the class's."""
     inner = getattr(obj, method)
 
     def copy(a):
@@ -328,8 +419,8 @@ def record_first_call(obj, method, box):
         return a.detach().clone() if hasattr(a, "detach") else a
 
     def wrapped(*args):
-        if not box:
-            box.extend(copy(a) for a in args)
+        if len(box) < n:
+            box.append([copy(a) for a in args])
         return inner(*args)
 
     setattr(obj, method, wrapped)
@@ -344,6 +435,7 @@ def main():
     try:
         import ppr_diffphys_torch  # noqa: F401
         from ppr_diffphys_torch.csrc import build as kbuild
+        from ppr_diffphys_torch import bench as pbench
     except ImportError as e:
         fail("the ppr_diffphys_torch package is not beside this script (%s)" % e)
     from ppr_diffphys_torch.models.serve import RolloutServer
@@ -354,6 +446,7 @@ def main():
     from ppr_diffphys_torch.sim.builder import ModelBuilder
     from ppr_diffphys_torch.sim.import_urdf import parse_urdf
     from ppr_diffphys_torch.sim.kinematics import eval_fk
+    from ppr_diffphys_torch.utils import h100
     from ppr_diffphys_torch.utils.config import build_opts
 
     dev = torch.device("cuda")
@@ -362,13 +455,16 @@ def main():
     # ---- 1. device --------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = nvidia_smi_line()
+    try:
+        smi = h100.nvidia_smi_line()
+    except RuntimeError as e:
+        fail(str(e))
     log("phase 1 device: torch %s cuda %s, %s (count %d), nvidia-smi: %s"
         % (torch.__version__, torch.version.cuda, kind, count, smi))
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.time()
-    logs = kbuild.build([soa.KERNEL, soa_grad.KERNEL], ptxas_verbose=True)
+    logs = kbuild.build([soa.KERNEL, soa_grad.KERNEL, soa.KERNEL_ROLLOUT], ptxas_verbose=True)
     log("phase 2 build: %.1f s" % (time.time() - t0))
     for name, text in logs.items():
         for line in text.strip().splitlines():
@@ -475,13 +571,11 @@ def main():
     per_frame = (kout[0] - pout[0]).abs().amax(dim=(1, 2, 3)).tolist()
     log("  body_q max|kernel-plain| per frame: %s" % [float("%.3g" % x) for x in per_frame])
     work = soa.window_work(m.env, E_MAIN, sub, F_MAIN)
-    t_bytes = work["bytes"] / H100_BYTES_PER_S
-    t_ops = work["ops"] / H100_FP32_OPS_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
+    k1_roof = h100.roofline(work["bytes"], work["ops"])
     log("phase 4 times: prologue %.3f ms, soa_window %.3f ms, plain %.1f ms; bound %.4f ms "
         "(%d bytes -> %.4f ms, %d fp32 ops (%d per env-substep) -> %.4f ms)"
-        % (prologue_ms, kern_ms, plain_ms, bound_ms, work["bytes"], t_bytes * 1e3,
-           work["ops"], work["per_env_substep"], t_ops * 1e3))
+        % (prologue_ms, kern_ms, plain_ms, k1_roof["ms"], work["bytes"], k1_roof["bytes_ms"],
+           work["ops"], work["per_env_substep"], k1_roof["ops_ms"]))
 
     # ---- 5. interval kernels vs plain on the card ----------------------------
     t0 = time.time()
@@ -565,7 +659,7 @@ def main():
     tm.reinit_envs(E_TRAIN, frames_per_wdw=F_TRAIN, is_eval=False)
     di = tm._interval()
     first = []
-    record_first_call(di, "_forward", first)
+    record_calls(di, "_forward", first)
     log("phase 6 model built: %.1f s; noise_std %g, loss weights %s"
         % (time.time() - t0, tm.noise_std, tm._weights_vec()))
 
@@ -605,7 +699,7 @@ def main():
         "%.3f GB; %d of %d parameter tensors changed"
         % ([round(x * 1e3, 3) for x in steps], float(np.median(steps)) * 1e3, peak_gb,
            changed, len(before)))
-    bq0, bqd0, tgt0, act0, res0, planes0 = first[:6]
+    bq0, bqd0, tgt0, act0, res0, planes0 = first[0][:6]
     shared = all(p.shape[-1] == 1 for p in planes0)
     want = {soa_grad.KERNEL_FWD: 3 * n_int, soa_grad.KERNEL_BWD: 3 * n_int,
             soa_grad.KERNEL_REDUCE: 3 * n_int if shared else 0}
@@ -655,17 +749,17 @@ def main():
     del pins, pq, pqd, pg, ref, got
     n_act = soa_grad.active_contacts(tm.env, sstate)
     iw = soa_grad.interval_work(tm.env, E_TRAIN, sub, n_active_contacts=n_act)
-    k2_t = (iw["fwd_bytes"] / H100_BYTES_PER_S, iw["fwd_ops"] / H100_FP32_OPS_PER_S)
-    k3_t = (iw["bwd_bytes"] / H100_BYTES_PER_S, iw["bwd_ops"] / H100_FP32_OPS_PER_S)
-    k2_bound, k3_bound = max(k2_t) * 1e3, max(k3_t) * 1e3
+    k2_roof = h100.roofline(iw["fwd_bytes"], iw["fwd_ops"])
+    k3_roof = h100.roofline(iw["bwd_bytes"], iw["bwd_ops"])
     step_ms = float(np.median(steps)) * 1e3
     log("phase 6 interval times (E=%d, %d substeps, first interval of the main path): "
         "K2 %.3f ms (bound %.4f ms: bytes %.4f, ops %.4f), plain forward %.1f ms; "
         "K3 incl. reduce %.3f ms (bound %.4f ms: bytes %.4f, ops %.4f; %d active "
         "contact-substeps of %d), plain backward %.1f ms; per step %d+%d launches -> "
         "K2 %.1f%% and K3 %.1f%% of the median step"
-        % (E_TRAIN, sub, k2_ms, k2_bound, k2_t[0] * 1e3, k2_t[1] * 1e3, p2_ms, k3_ms,
-           k3_bound, k3_t[0] * 1e3, k3_t[1] * 1e3, n_act, E_TRAIN * sub * tm.env.contact_count,
+        % (E_TRAIN, sub, k2_ms, k2_roof["ms"], k2_roof["bytes_ms"], k2_roof["ops_ms"], p2_ms,
+           k3_ms, k3_roof["ms"], k3_roof["bytes_ms"], k3_roof["ops_ms"], n_act,
+           E_TRAIN * sub * tm.env.contact_count,
            p3_ms, n_int, n_int, 100 * n_int * k2_ms / step_ms, 100 * n_int * k3_ms / step_ms))
 
     # the training loop's full-sequence eval (ppr_diffphys_torch/main.py):
@@ -673,7 +767,7 @@ def main():
     tm.reinit_envs(1, frames_per_wdw=tm.total_frames, is_eval=True)
     win = tm._window(tm.frames_per_wdw)
     wargs = []
-    record_first_call(win, "_launch", wargs)
+    record_calls(win, "_launch", wargs)
     win.launches = 0
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -690,14 +784,248 @@ def main():
     if not all(np.isfinite(float(v)) for v in ev.values()):
         fail("phase 6 eval: non-finite loss")
     with torch.no_grad():
+        wargs = wargs[0]
         kout = win(*wargs)
         pout = tint.rollout(win.integrator, wargs[3], wargs[0], wargs[1], wargs[2], None,
                             tm.dt, sub)
     check_errs("phase 6 eval window", max_errs(kout, pout), TOL_MAIN)
+    del tm, di, first, sstate, kg, planes0, bq0, bqd0, tgt0
+    torch.cuda.empty_cache()
+
+    # ---- 7. the bench rollout kernel K4 vs plain on the card --------------------
+    t0 = time.time()
+    for mname, model in (("a1", a1), ("chain", synthetic.chain_model())):
+        q, qd, tgt, act = synthetic.window_problem(model, E_CHECK, sub, 2, seed=SEED + 5)
+        bq, bqd = eval_fk(model, torch.as_tensor(q), torch.as_tensor(qd))
+        bq = synthetic.grounded(model, bq.numpy(), seed=SEED + 5)
+        state = tint.SimState(torch.as_tensor(bq, device=dev), bqd.to(dev))
+        tgt = torch.as_tensor(tgt[:sub], device=dev)
+        act = torch.as_tensor(act[:sub], device=dev)
+        integ = tint.SemiImplicitIntegrator(model)
+        with torch.no_grad():
+            cforce = tint.eval_body_contacts(model, tint.default_sim_params(model, dev), state)
+        if float(cforce[..., 3:].abs().max()) < 1.0:
+            fail("phase 7 %s: no contact force: the check is vacuous" % mname)
+        ke, kd, mass, norm_I = synthetic.sim_params_np(model, None, seed=SEED)
+        t = lambda x: torch.as_tensor(x, device=dev)
+        I = t(norm_I) * t(mass)[..., None, None]
+        params = tint.SimParams(t(mass), 1.0 / t(mass), I, torch.linalg.inv(I), t(ke), t(kd))
+        k4 = soa.build_soa_rollout(integ, params, m.dt, sub)
+        pl = soa.traced_planes(model, params)
+        x0, xd0 = state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0)
+        for aname, acts in (("act", act), ("zero-act", torch.zeros_like(act))):
+            label = "phase 7 %s/%s" % (mname, aname)
+            out = k4(state, tgt, acts)
+            ref = tint.rollout_substeps(integ, params, state, tgt, acts, m.dt)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(x).all()) for x in out):
+                fail(label + ": non-finite K4 output")
+            check_errs(label + " K4 values", {"q": float((out[0] - ref[0]).abs().max()),
+                                              "qd": float((out[1] - ref[1]).abs().max())},
+                       TOL_INTERVAL)
+            # K2 without its export runs the same substeps of substep.cuh
+            di = soa_grad.DiffInterval(integ, m.dt, sub, with_act=True)
+            with torch.no_grad():
+                x, xd = di(x0, xd0, tgt.permute(0, 2, 1), acts.permute(0, 2, 1), None,
+                           *(pl[n] for n in soa.TRACED_NAMES))
+            if not (torch.equal(x.permute(2, 1, 0), out[0])
+                    and torch.equal(xd.permute(2, 1, 0), out[1])):
+                fail(label + ": K4 differs from K2 (soa_interval_fwd) on the same inputs")
+        if not (torch.equal(k4(state, tgt, None)[0], out[0])):
+            fail("phase 7 %s: K4 with no acts differs from K4 with zero acts" % mname)
+        if k4.launches != 3:
+            fail("phase 7 %s: %d K4 launches, 3 expected" % (mname, k4.launches))
+        log("  phase 7 %s: K4 == K2 (soa_interval_fwd) final state, bit for bit; "
+            "acts None == zero acts" % mname)
+        try:
+            ke, kd, mass, norm_I = synthetic.sim_params_np(model, E_CHECK, seed=SEED)
+            I = t(norm_I) * t(mass)[..., None, None]
+            soa.build_soa_rollout(integ, tint.SimParams(
+                t(mass), 1.0 / t(mass), I, torch.linalg.inv(I), t(ke), t(kd)), m.dt, sub)
+            fail("phase 7 %s: build_soa_rollout took per-env parameters" % mname)
+        except ValueError:
+            pass
+        k4_ms, _ = cuda_time_ms(lambda: k4(state, tgt, act), 10)
+        w4 = soa.rollout_work(model, E_CHECK, sub)
+        roof = h100.roofline(w4["bytes"], w4["ops"])
+        log("  phase 7 %s E=%d, %d substeps: soa_rollout %.3f ms (bound %.4f ms by %s)"
+            % (mname, E_CHECK, sub, k4_ms, roof["ms"], roof["by"]))
+    log("phase 7 K4 vs plain: ok, per-env parameters rejected (%.1f s)" % (time.time() - t0))
+
+    # ---- 8. the bench main path (ppr_diffphys_torch.bench) -------------------------
+    t0 = time.time()
+    work = pbench.build_workload(envs=E_MAIN, contacts="hull", device="cuda", seed=SEED)
+    rb = pbench.Bench(work, "rollout", BENCH_STEPS, sub)
+    rb.reset_launches()
+    walls, final = rb.measure(pbench.REPS)
+    roll_launches = rb.launches()
+    log("phase 8 rollout launches during the main path: %s" % json.dumps(roll_launches))
+    want = rb.n_iv * (pbench.REPS + 1)
+    if roll_launches[soa.KERNEL_ROLLOUT] != want:
+        fail("phase 8 rollout: %d K4 launches, %d expected (%d per rep, warm-up + %d reps)"
+             % (roll_launches[soa.KERNEL_ROLLOUT], want, rb.n_iv, pbench.REPS))
+    B = work.model.n_links
+    if tuple(final.body_q.shape) != (E_MAIN, B, 7) or tuple(final.body_qd.shape) != (E_MAIN, B, 6):
+        fail("phase 8 rollout: final state shape %s" % (tuple(final.body_q.shape),))
+    if not (torch.isfinite(final.body_q).all() and torch.isfinite(final.body_qd).all()):
+        fail("phase 8 rollout: non-finite final state")
+    if float((final.body_q[..., 3:7].norm(dim=-1) - 1).abs().max()) > 1e-3:
+        fail("phase 8 rollout: final quaternions are not unit")
+    wall = float(np.mean(walls))
+    busy, _ = rb.profile(wall)
+    roof = rb.work_bound()
+    log("phase 8 rollout %d envs x %d substeps (%d K4 calls of %d): rep walls ms %s, mean "
+        "%.3f ms, %.6g env-steps/s; device busy %s of the rep; bound %.4f ms by %s"
+        % (E_MAIN, rb.steps, rb.n_iv, sub, [w * 1e3 for w in walls], wall * 1e3,
+           E_MAIN * rb.steps / wall, "not measured" if busy is None else "%.4f" % busy,
+           roof["ms"], roof["by"]))
+    # K4 alone on the main path's first-call inputs, vs plain
+    k4_ms, k4_out = cuda_time_ms(lambda: rb.kernel(work.state, rb.tgt, rb.act), 10)
+    p4_ms, p4_out = cuda_time_ms(lambda: tint.rollout_substeps(
+        work.integrator, rb.kernel.params, work.state, rb.tgt, rb.act, m.dt), 1)
+    k4_err = {"q": float((k4_out[0] - p4_out[0]).abs().max()),
+              "qd": float((k4_out[1] - p4_out[1]).abs().max())}
+    check_errs("phase 8 main-path K4 call", k4_err, TOL_INTERVAL)
+    w4 = soa.rollout_work(work.model, E_MAIN, sub)
+    k4_roof = h100.roofline(w4["bytes"], w4["ops"])
+    log("phase 8 K4 per launch (E=%d, %d substeps): %.3f ms, plain %.1f ms; bound %.4f ms "
+        "(%d bytes -> %.4f ms, %d fp32 ops -> %.4f ms)"
+        % (E_MAIN, sub, k4_ms, p4_ms, k4_roof["ms"], w4["bytes"], k4_roof["bytes_ms"],
+           w4["ops"], k4_roof["ops_ms"]))
+    # the whole rep against the plain version on the first E_DEEP envs
+    sl = tint.SimState(work.state.body_q[:E_DEEP].contiguous(),
+                       work.state.body_qd[:E_DEEP].contiguous())
+    tgt_d, act_d = rb.tgt[:, :E_DEEP].contiguous(), rb.act[:, :E_DEEP].contiguous()
+    kfin, pfin, per_iv, contact = sl, sl, [], []
+    for _ in range(rb.n_iv):
+        kfin = rb.kernel(kfin, tgt_d, act_d)
+        pfin = tint.rollout_substeps(work.integrator, rb.kernel.params, pfin, tgt_d, None, m.dt)
+        per_iv.append(float((kfin[0] - pfin[0]).abs().max()))
+        with torch.no_grad():
+            f = tint.eval_body_contacts(work.model, rb.kernel.params, pfin)
+        contact.append(float(f[..., 3:].abs().max()))
+    check_errs("phase 8 rollout, %d envs x %d substeps" % (E_DEEP, rb.steps),
+               {"q": float((kfin[0] - pfin[0]).abs().max()),
+                "qd": float((kfin[1] - pfin[1]).abs().max())}, TOL_DEEP)
+    log("  q error after each K4 call: %s; largest contact force after each call (N): %s"
+        % ([float("%.3g" % x) for x in per_iv], [float("%.3g" % x) for x in contact]))
+    # yardstick: the plain rollout's own sensitivity to a 1e-7 change of its start
+    rng = np.random.RandomState(SEED + 9)
+    nudge = lambda x: x + 1e-7 * torch.as_tensor(rng.randn(*x.shape).astype(np.float32),
+                                                 device=dev)
+    pert = tint.SimState(nudge(sl[0]), nudge(sl[1]))
+    for _ in range(rb.n_iv):
+        pert = tint.rollout_substeps(work.integrator, rb.kernel.params, pert, tgt_d, None, m.dt)
+    log("  yardstick: the plain rollout from a start moved by 1e-7 ends q %.3g, qd %.3g away"
+        % (float((pert[0] - pfin[0]).abs().max()), float((pert[1] - pfin[1]).abs().max())))
+
+    tb = pbench.Bench(work, "train", BENCH_STEPS, sub)
+    calls = []
+    record_calls(tb.kernel, "_forward", calls, tb.n_iv)  # the warm-up rep's intervals
+    tb.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    walls, (loss, grads) = tb.measure(pbench.REPS)
+    bench_train_launches = tb.launches()
+    del tb.kernel._forward
+    if len(calls) != tb.n_iv:
+        fail("phase 8 train: %d interval calls recorded, %d expected" % (len(calls), tb.n_iv))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log("phase 8 train launches during the main path: %s" % json.dumps(bench_train_launches))
+    n = tb.n_iv * (pbench.REPS + 1)
+    want = {soa_grad.KERNEL_FWD: n, soa_grad.KERNEL_BWD: n, soa_grad.KERNEL_REDUCE: n}
+    if bench_train_launches != want:
+        fail("phase 8 train: launches %s, expected %s (%d of each per rep, warm-up + %d reps)"
+             % (json.dumps(bench_train_launches), json.dumps(want), tb.n_iv, pbench.REPS))
+    if not np.isfinite(float(loss)):
+        fail("phase 8 train: non-finite loss")
+    for k, g in grads.items():
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            fail("phase 8 train: gradient %s is not finite and non-zero" % k)
+    wall = float(np.mean(walls))
+    busy, rows = tb.profile(wall)
+    roof = tb.work_bound()
+    log("phase 8 train %d envs x %d substeps (%d intervals of %d): loss %.6g, grad norms %s; "
+        "rep walls ms %s, mean %.3f ms, %.6g env-steps/s; device busy %s of the rep; peak "
+        "device memory %.3f GB; interval kernels' bound %.4f ms by %s"
+        % (E_MAIN, tb.steps, tb.n_iv, sub, float(loss),
+           json.dumps({k: float("%.4g" % float(g.norm())) for k, g in grads.items()}),
+           [w * 1e3 for w in walls], wall * 1e3, E_MAIN * tb.steps / wall,
+           "not measured" if busy is None else "%.4f" % busy, peak_gb, roof["ms"], roof["by"]))
+    log("  profiled train rep: top kernels (ms, launches, name):")
+    for ms, c, k in rows[:8]:
+        log("    %9.3f %6d  %s" % (ms, c, k[:100]))
+    log("  interval kernels %.3f ms of %.3f ms device time, %d launches in all"
+        % (sum(r[0] for r in rows if "soa_interval" in r[2]), sum(r[0] for r in rows),
+           sum(r[1] for r in rows)))
+    # K2 values and K3 gradients at the main path's width (4096 envs, shared
+    # planes, K3's reduction over 4096 partials), at the plain linearization
+    # for seeded cotangents, on the first and the last interval: first on
+    # the warm-up rep's own inputs, with each gradient's limit raised to the
+    # plain gradient's own change for a 1e-7 change of the start (the
+    # bench's start sits on the atan2 kink, see offset_workload), then on
+    # the same training path from offset targets and joint angles, where
+    # every gradient is held to its tolerance
+    rng = np.random.RandomState(SEED + 10)
+    w = (torch.as_tensor(rng.randn(7, B, E_MAIN).astype(np.float32), device=dev),
+         torch.as_tensor(rng.randn(6, B, E_MAIN).astype(np.float32), device=dev))
+    for i in (0, tb.n_iv - 1):
+        interval_at_width("phase 8 train interval %d of %d (E=%d)" % (i + 1, tb.n_iv, E_MAIN),
+                          tb.kernel, calls[i], w, yardstick=True)
+    del tb, grads, calls
+    ob = pbench.Bench(offset_workload(pbench, E_MAIN, "cuda", SEED + 8), "train",
+                      BENCH_STEPS, sub)
+    calls = []
+    record_calls(ob.kernel, "_forward", calls, ob.n_iv)
+    ob.loss_and_grads()
+    del ob.kernel._forward
+    for i in (0, ob.n_iv - 1):
+        interval_at_width("phase 8 offset train interval %d of %d (E=%d)"
+                          % (i + 1, ob.n_iv, E_MAIN), ob.kernel, calls[i], w, yardstick=False)
+    del ob, calls
+    # the training workload's loss and gradients on the kernels against the
+    # plain version on the CPU, at a small size, from the same kind of
+    # offset start (offset_workload)
+    small_cpu = offset_workload(pbench, E_SMALL, "cpu", SEED + 8)
+    small = offset_workload(pbench, E_SMALL, "cuda", SEED + 8)
+    lk, gk = pbench.Bench(small, "train", 6 * sub, sub).loss_and_grads()
+    lp, gp = pbench.Bench(small_cpu, "train", 6 * sub, sub).loss_and_grads()
+    rel = {k: float((gk[k].cpu() - gp[k]).abs().max() / (gp[k].abs().max() + 1e-30))
+           for k in gp}
+    log("  phase 8 train at %d envs x 2 intervals, kernels vs plain on the CPU: loss %.9g vs "
+        "%.9g; gradient max|kernel-plain|/max|plain| %s (tol %g)"
+        % (E_SMALL, float(lk), float(lp), json.dumps({k: float("%.3g" % v) for k, v in rel.items()}),
+           TOL_GRAD_SUM))
+    if abs(float(lk) - float(lp)) > 1e-4 * abs(float(lp)) or not all(
+            np.isfinite(v) and v <= TOL_GRAD_SUM for v in rel.values()):
+        fail("phase 8 train: kernels and plain version disagree at %d envs" % E_SMALL)
+
+    # K2 and K3 at the 24 Hz interval (83 substeps), at the plain linearization
+    S83 = 83
+    q, qd, tgt, _ = synthetic.window_problem(a1, E_CHECK, S83, 2, seed=SEED + 6)
+    bq, bqd = eval_fk(a1, torch.as_tensor(q), torch.as_tensor(qd))
+    bq = synthetic.grounded(a1, bq.numpy(), seed=SEED + 6)
+    bq_p = torch.as_tensor(bq, device=dev).permute(2, 1, 0).contiguous()
+    bqd_p = bqd.to(dev).permute(2, 1, 0).contiguous()
+    tgt_p = torch.as_tensor(tgt[:S83], device=dev).permute(0, 2, 1).contiguous()
+    integ = tint.SemiImplicitIntegrator(a1)
+    rng = np.random.RandomState(SEED + 7)
+    w = (torch.as_tensor(rng.randn(7, B, E_CHECK).astype(np.float32), device=dev),
+         torch.as_tensor(rng.randn(6, B, E_CHECK).astype(np.float32), device=dev))
+    params = tint.default_sim_params(a1, dev)
+    di = soa_grad.DiffInterval(integ, m.dt, S83)
+    label = "phase 8 a1 %d-substep interval" % S83
+    qk, qdk, _ = interval_grads(di, bq_p, bqd_p, tgt_p, None, *param_planes(a1, params), w)
+    qp, qdp, _ = interval_grads(lambda *a: tint.interval(integ, m.dt, *a),
+                                bq_p, bqd_p, tgt_p, None, *param_planes(a1, params), w)
+    check_errs(label + " K2 values", {"q": float((qk - qp).abs().max()),
+                                      "qd": float((qdk - qdp).abs().max())}, TOL_INTERVAL)
+    ref, got = linearized_grads(label, di, bq_p, bqd_p, tgt_p, None,
+                                *param_planes(a1, params), w)
+    check_grads(label, grad_errors(ref, got, E_CHECK), E_CHECK, linearized=True)
+    log("phase 8 bench main path: ok (%.1f s)" % (time.time() - t0))
     log("total %.1f s" % (time.time() - t_all))
 
-    # ---- 7. results ------------------------------------------------------------
-    by = lambda t: "operations" if t[1] >= t[0] else "bytes"
+    # ---- results -----------------------------------------------------------------
     kernels = [{
         "name": soa.KERNEL,
         "route": "cuda",
@@ -707,8 +1035,8 @@ def main():
         "max_abs_err": errs["q"],
         "ms": kern_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": k1_roof["ms"],
+        "bound_by": k1_roof["by"],
         "library_ms": None,
     }, {
         "name": soa_grad.KERNEL_FWD,
@@ -719,8 +1047,8 @@ def main():
         "max_abs_err": k2_err["q"],
         "ms": k2_ms,
         "plain_ms": p2_ms,
-        "bound_ms": k2_bound,
-        "bound_by": by(k2_t),
+        "bound_ms": k2_roof["ms"],
+        "bound_by": k2_roof["by"],
         "library_ms": None,
     }, {
         # K3's row counts its launches together with the env reduction's
@@ -733,8 +1061,20 @@ def main():
         "max_abs_err": k3_abs,
         "ms": k3_ms,
         "plain_ms": p3_ms,
-        "bound_ms": k3_bound,
-        "bound_by": by(k3_t),
+        "bound_ms": k3_roof["ms"],
+        "bound_by": k3_roof["by"],
+        "library_ms": None,
+    }, {
+        "name": soa.KERNEL_ROLLOUT,
+        "route": "cuda",
+        "source": "ppr_diffphys_torch/csrc/soa_rollout.cu",
+        "replaces": "ppr_diffphys_tpu/sim/pallas_soa.py:1329",
+        "launches": int(roll_launches[soa.KERNEL_ROLLOUT]),
+        "max_abs_err": k4_err["q"],
+        "ms": k4_ms,
+        "plain_ms": p4_ms,
+        "bound_ms": k4_roof["ms"],
+        "bound_by": k4_roof["by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

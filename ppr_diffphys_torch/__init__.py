@@ -6,8 +6,9 @@ scipy only: never jax, flax, optax or ``ppr_diffphys_tpu`` (whose
 ``__init__`` imports jax), so it keeps its own copies of the numpy-only
 host modules (URDF parser, model builder, mocap loader, config).
 
-Plain tensor math is PyTorch; the simulator's hot loop is a hand-written
-CUDA kernel (``csrc/soa_window.cu``) with a plain PyTorch version beside it
+Plain tensor math is PyTorch; the simulator's hot loops are hand-written
+CUDA kernels (``csrc/``: the serving window, the training interval pair
+and the bench rollout) with plain PyTorch versions beside them
 (``sim/integrator.py``) that CPU tensors take.
 
 Entry points take ``device=`` and default to ``"cuda"``; asking for cuda

@@ -2,9 +2,11 @@
 of ``ppr_diffphys_tpu/sim/integrator.py`` (forward only).
 
 This is the **plain version** of the port's kernels: ``rollout`` of the
-serving window (``csrc/soa_window.cu``, wrapped by ``sim/soa.py``) and
-``interval`` of the training interval pair (``csrc/soa_interval.cu``,
-wrapped by ``sim/soa_grad.py``; its gradients are autograd's). CPU tensors
+serving window (``csrc/soa_window.cu``, wrapped by ``sim/soa.py``),
+``rollout_substeps`` of the bench rollout (``csrc/soa_rollout.cu``, also
+wrapped there) and ``interval`` of the training interval pair
+(``csrc/soa_interval.cu``, wrapped by ``sim/soa_grad.py``; its gradients
+are autograd's). CPU tensors
 run through it, and on the card it is what the kernels are checked against.
 Quantities are batched over (env E, body B); gathers are plain indexing and
 the contact/parent scatters are ``index_add_``. Every function is
@@ -432,6 +434,22 @@ def rollout(
     jafs.append(jaf_l)
     return (torch.stack(qs, 0), torch.stack(qds, 0),
             torch.stack(grfs, 0), torch.stack(jafs, 0))
+
+
+def rollout_substeps(integrator: SemiImplicitIntegrator, params: SimParams,
+                     state0: SimState, joint_targets: torch.Tensor,
+                     joint_acts: Optional[torch.Tensor], dt: float) -> SimState:
+    """S = len(joint_targets) substeps with zero residual forces, final state
+    only: the plain version of ``csrc/soa_rollout.cu`` (the bench rollout,
+    ``sim/soa.py:SoaRollout``), the loop ``tests/test_pallas.py`` holds the
+    TPU kernel against. joint_targets/joint_acts (S,E,n_qd), acts may be
+    None (zero)."""
+    state = state0
+    for i in range(joint_targets.shape[0]):
+        state = integrator.step_only(
+            params, state, joint_targets[i], None if joint_acts is None else joint_acts[i],
+            None, dt)
+    return state
 
 
 def plane_params(gains, inv_m, inertia, inv_inertia, E: int):

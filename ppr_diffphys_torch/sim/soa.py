@@ -1,7 +1,7 @@
-"""The serving window: the whole forward window of frame intervals in one
-CUDA launch, counterpart of the window half of
-``ppr_diffphys_tpu/sim/pallas_soa.py`` (``build_soa_static``,
-``traced_planes``, ``build_soa_window``).
+"""The serving window (the whole forward window of frame intervals in one
+CUDA launch) and the bench rollout (S substeps, final state only),
+counterpart of ``ppr_diffphys_tpu/sim/pallas_soa.py`` (``build_soa_static``,
+``traced_planes``, ``build_soa_window``, ``build_soa_rollout``).
 
 - :func:`soa_static` builds the per-model constant tensors once. The
   plane-layout arrays keep the JAX names and shapes (``axis_c``, ``xp_q``,
@@ -13,6 +13,10 @@ CUDA launch, counterpart of the window half of
 - :class:`SoaWindow` is the wrapper: CPU tensors take the plain PyTorch
   version (``integrator.rollout``); CUDA tensors launch
   ``csrc/soa_window.cu`` or raise. It never falls back.
+- :class:`SoaRollout` (:func:`build_soa_rollout`) is the bench rollout's
+  wrapper, with the parameters baked in as lane-1 planes: CPU tensors take
+  ``integrator.rollout_substeps``; CUDA tensors launch
+  ``csrc/soa_rollout.cu`` or raise.
 """
 
 from __future__ import annotations
@@ -24,9 +28,17 @@ import torch
 
 from ..csrc import build as kbuild
 from .builder import JOINT_COMPOUND, JOINT_FIXED, JOINT_REVOLUTE
-from .integrator import SemiImplicitIntegrator, SimParams, SimState, dof_index, rollout
+from .integrator import (
+    SemiImplicitIntegrator,
+    SimParams,
+    SimState,
+    dof_index,
+    rollout,
+    rollout_substeps,
+)
 
 KERNEL = "soa_window"
+KERNEL_ROLLOUT = "soa_rollout"
 TRACED_NAMES = ("gains", "inv_m", "inertia", "inv_inertia")
 THREADS_PER_BLOCK = 32
 
@@ -159,6 +171,72 @@ def window_work(model, E: int, substeps: int, n_frames: int) -> dict:
     return dict(bytes=bytes_in + bytes_out, ops=ops, per_env_substep=per_substep)
 
 
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+class PackedConsts:
+    """A wrapper's packed per-model constants (``pack_static(soa_static(
+    model))``), built once per device and kept alive here. ``ptrs(dev)``
+    gives the kernels' four constant arguments: body_i, body_f, cbody, cf."""
+
+    def __init__(self, model):
+        self.model = model
+        self._by_dev = {}
+
+    def ptrs(self, dev) -> list:
+        key = str(dev)
+        if key not in self._by_dev:
+            self._by_dev[key] = pack_static(soa_static(self.model, dev))
+        c = self._by_dev[key]
+        return [ptr(c[n]) for n in ("body_i", "body_f", "cbody", "cf")]
+
+
+def launch_tail(model, dt: float, dev) -> list:
+    """The arguments every launch entry point ends with: dt, the angular
+    decay, gravity, the attach gains, the threads per block and the stream."""
+    g = model.gravity
+    return [float(dt), 1.0 - 0.1 * float(dt), float(g[0]), float(g[1]), float(g[2]),
+            float(model.joint_attach_ke), float(model.joint_attach_kd),
+            THREADS_PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream]
+
+
+def check_bodies(name: str, B: int, max_b: int):
+    if B > max_b:
+        raise ValueError("%s supports at most %d bodies, got %d" % (name, max_b, B))
+
+
+def env_innermost(name: str, model, state: SimState, joint_targets, joint_acts, S: int,
+                  planes) -> tuple:
+    """Checks a launch's inputs (float32 on the state's device, the shapes
+    the kernel reads, parameter planes of lane 1 or E) and lays them out env
+    innermost, so that a warp reads 32 consecutive floats: bq (7,B,E), bqd
+    (6,B,E), tgt and act (S,n_qd,E) (act None stays None)."""
+    dev = state.body_q.device
+    E, B, n_qd = state.body_q.shape[0], model.n_links, model.n_qd
+    tensors = [state.body_q, state.body_qd, joint_targets] + list(planes)
+    if joint_acts is not None:
+        tensors.append(joint_acts)
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError("%s takes float32 tensors and parameters on %s" % (name, dev))
+    if state.body_q.shape != (E, B, 7) or state.body_qd.shape != (E, B, 6):
+        raise ValueError("state must be (E,B,7)/(E,B,6), got %s/%s"
+                         % (tuple(state.body_q.shape), tuple(state.body_qd.shape)))
+    if joint_targets.shape != (S, E, n_qd) or (
+            joint_acts is not None and joint_acts.shape != joint_targets.shape):
+        raise ValueError("joint targets/acts must be (S, E, n_qd) = (%d, %d, %d)" % (S, E, n_qd))
+    for p in planes:
+        if p.shape[-1] not in (1, E):
+            raise ValueError("a parameter plane has lane width %d, not 1 or E=%d"
+                             % (p.shape[-1], E))
+    bq = state.body_q.permute(2, 1, 0).contiguous()
+    bqd = state.body_qd.permute(2, 1, 0).contiguous()
+    tgt = joint_targets.permute(0, 2, 1).contiguous()
+    act = None if joint_acts is None else joint_acts.permute(0, 2, 1).contiguous()
+    return bq, bqd, tgt, act
+
+
 def _kernel_lib():
     """The built soa_window library with its C signatures declared."""
     lib = kbuild.load(KERNEL)
@@ -199,7 +277,7 @@ class SoaWindow:
         self.F = int(n_frames)
         if self.F < 2 or self.sub < 1:
             raise ValueError("need n_frames >= 2 and substeps >= 1")
-        self._packed = {}
+        self._consts = PackedConsts(self.model)
         self.launches = 0  # kernel launches of this wrapper
 
     def __call__(self, state: SimState, joint_targets, joint_acts, params: SimParams):
@@ -216,68 +294,140 @@ class SoaWindow:
             raise ValueError("SoaWindow runs on cpu or cuda tensors, not %s" % dev)
         return self._launch(state, joint_targets, joint_acts, params)
 
-    def _consts(self, dev):
-        key = str(dev)
-        if key not in self._packed:
-            self._packed[key] = pack_static(soa_static(self.model, dev))
-        return self._packed[key]
-
     def _launch(self, state, joint_targets, joint_acts, params):
         model = self.model
-        dev = state.body_q.device
-        E, B = state.body_q.shape[0], model.n_links
-        n_qd, F = model.n_qd, self.F
+        E, B, F = state.body_q.shape[0], model.n_links, self.F
         lib = _kernel_lib()
-        max_b = lib.soa_window_max_bodies()
-        if B > max_b:
-            raise ValueError("soa_window supports at most %d bodies, got %d" % (max_b, B))
-        tensors = [state.body_q, state.body_qd, joint_targets]
-        if joint_acts is not None:
-            tensors.append(joint_acts)
-        for t in tensors:
-            if t.device != dev or t.dtype != torch.float32:
-                raise ValueError("soa_window takes float32 tensors on %s" % dev)
-        if state.body_q.shape != (E, B, 7) or state.body_qd.shape != (E, B, 6):
-            raise ValueError("state must be (E,B,7)/(E,B,6), got %s/%s"
-                             % (tuple(state.body_q.shape), tuple(state.body_qd.shape)))
-        if joint_targets.shape[1:] != (E, n_qd) or (
-                joint_acts is not None and joint_acts.shape != joint_targets.shape):
-            raise ValueError("joint targets/acts must be (S, E, n_qd)")
-
-        # env-innermost layouts: a warp reads 32 consecutive floats
-        bq = state.body_q.permute(2, 1, 0).contiguous()  # (7,B,E)
-        bqd = state.body_qd.permute(2, 1, 0).contiguous()  # (6,B,E)
-        tgt = joint_targets.permute(0, 2, 1).contiguous()  # (S,n_qd,E)
-        act = None if joint_acts is None else joint_acts.permute(0, 2, 1).contiguous()
+        check_bodies(KERNEL, B, lib.soa_window_max_bodies())
         planes = traced_planes(model, params)
-        for n, p in planes.items():
-            if p.device != dev:
-                raise ValueError("parameter plane %s is not on %s" % (n, dev))
-            if p.shape[-1] not in (1, E):
-                raise ValueError("parameter plane %s has lane width %d, not 1 or E=%d"
-                                 % (n, p.shape[-1], E))
-        c = self._consts(dev)
+        bq, bqd, tgt, act = env_innermost(KERNEL, model, state, joint_targets, joint_acts,
+                                          joint_targets.shape[0], planes.values())
+        dev = bq.device
         out_q = torch.empty((F, 7, B, E), dtype=torch.float32, device=dev)
         out_qd = torch.empty((F, 6, B, E), dtype=torch.float32, device=dev)
         out_grf = torch.empty((F, 6, B, E), dtype=torch.float32, device=dev)
         out_jaf = torch.empty((F, 6, B, E), dtype=torch.float32, device=dev)
 
-        ptr = lambda t: t.data_ptr() if t is not None else None
         pe = lambda n: int(planes[n].shape[-1] == E and E > 1)
-        g = model.gravity
         status = lib.soa_window_launch(
-            ptr(bq), ptr(bqd), ptr(tgt), ptr(act),
-            ptr(c["body_i"]), ptr(c["body_f"]), ptr(c["cbody"]), ptr(c["cf"]),
+            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *self._consts.ptrs(dev),
             ptr(planes["gains"]), pe("gains"), ptr(planes["inv_m"]), pe("inv_m"),
             ptr(planes["inertia"]), pe("inertia"),
             ptr(planes["inv_inertia"]), pe("inv_inertia"),
             ptr(out_q), ptr(out_qd), ptr(out_grf), ptr(out_jaf),
-            E, B, n_qd, model.contact_count, F, self.sub,
-            self.dt, 1.0 - 0.1 * self.dt, float(g[0]), float(g[1]), float(g[2]),
-            float(model.joint_attach_ke), float(model.joint_attach_kd),
-            THREADS_PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream,
+            E, B, model.n_qd, model.contact_count, F, self.sub,
+            *launch_tail(model, self.dt, dev),
         )
         kbuild.check(status, KERNEL)
         self.launches += 1
         aos = lambda x: x.permute(0, 3, 2, 1).contiguous()  # (F,·,B,E) -> (F,E,B,·)
         return aos(out_q), aos(out_qd), aos(out_grf), aos(out_jaf)
+
+
+def rollout_work(model, E: int, substeps: int) -> dict:
+    """Bytes one bench-rollout launch must move and fp32 operations it must
+    do, for the kernel's roofline bound: the state, targets, acts (the bench
+    passes zeros, as bench.py does), shared planes and constants read once,
+    the final state written once; ``window_work``'s operation count per
+    env-substep, S full substeps."""
+    B, C, n_qd = model.n_links, model.contact_count, model.n_qd
+    S = int(substeps)
+    f4 = 4
+    per = window_work(model, E, S, 2)["per_env_substep"]
+    seq = 2 * S * n_qd * E
+    bytes_in = (13 * B * E + seq) * f4 + (2 * 3 * B + B + 2 * 9 * B) * f4 + (
+        B * (5 + 32) + C * 9) * f4
+    bytes_out = 13 * B * E * f4
+    return dict(bytes=bytes_in + bytes_out, ops=E * S * per, per_env_substep=per)
+
+
+def _rollout_lib():
+    """The built soa_rollout library with its C signatures declared."""
+    lib = kbuild.load(KERNEL_ROLLOUT)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.soa_rollout_max_bodies.argtypes = []
+    lib.soa_rollout_max_bodies.restype = I
+    lib.soa_rollout_launch.argtypes = (
+        [P] * 4  # bq0 bqd0 tgt act
+        + [P] * 4  # body_i body_f cbody cf
+        + [P] * 4  # gains inv_m inertia inv_inertia (lane 1)
+        + [P] * 2  # out_q out_qd
+        + [I] * 5  # E B n_qd C S
+        + [Fl] * 7  # dt ang_decay gx gy gz attach_ke attach_kd
+        + [I, P]  # threads per block, stream
+    )
+    lib.soa_rollout_launch.restype = I
+    return lib
+
+
+class SoaRollout:
+    """S forward substeps, final state only (pallas_soa.py:1272-1351
+    build_soa_rollout): the bench's rollout kernel.
+
+    ``run(state (E,B,7)/(E,B,6), joint_targets (S,E,n_qd), joint_acts
+    (S,E,n_qd) or None) -> SimState`` after S substeps, residual forces
+    zero. The parameters are baked in at construction as lane-1 planes.
+
+    CPU tensors run the plain version (``integrator.rollout_substeps``);
+    CUDA tensors launch ``csrc/soa_rollout.cu``, counted in
+    ``self.launches``, or raise."""
+
+    def __init__(self, integrator: SemiImplicitIntegrator, params: SimParams, dt: float,
+                 substeps: int):
+        if (params.joint_target_ke.ndim != 1 or params.joint_target_kd.ndim != 1
+                or params.body_inv_mass.ndim != 1 or params.body_inertia.ndim != 3):
+            raise ValueError("build_soa_rollout bakes in shared parameters; per-env "
+                             "gains, masses or inertias are not supported")
+        if params.joint_X_p is not None or params.body_com is not None:
+            raise ValueError("build_soa_rollout takes joint_X_p and body_com from the model")
+        self.integrator = integrator
+        self.model = integrator.model
+        self.params = SimParams(*(None if x is None else x.detach() for x in params))
+        self.dt = float(dt)
+        self.S = int(substeps)
+        if self.S < 1:
+            raise ValueError("need substeps >= 1")
+        self.planes = {n: p.detach() for n, p in traced_planes(self.model, self.params).items()}
+        self._consts = PackedConsts(self.model)
+        self.launches = 0  # kernel launches of this wrapper
+
+    def __call__(self, state: SimState, joint_targets, joint_acts=None) -> SimState:
+        dev = state.body_q.device
+        if joint_targets.shape[0] != self.S:
+            raise ValueError("joint_targets has %d rows; the rollout runs %d substeps"
+                             % (joint_targets.shape[0], self.S))
+        if dev.type == "cpu":
+            return rollout_substeps(self.integrator, self.params, state, joint_targets,
+                                    joint_acts, self.dt)
+        if dev.type != "cuda":
+            raise ValueError("SoaRollout runs on cpu or cuda tensors, not %s" % dev)
+        return self._launch(state, joint_targets, joint_acts)
+
+    def _launch(self, state, joint_targets, joint_acts):
+        model = self.model
+        E, B = state.body_q.shape[0], model.n_links
+        lib = _rollout_lib()
+        check_bodies(KERNEL_ROLLOUT, B, lib.soa_rollout_max_bodies())
+        pl = self.planes
+        bq, bqd, tgt, act = env_innermost(KERNEL_ROLLOUT, model, state, joint_targets,
+                                          joint_acts, self.S, pl.values())
+        dev = bq.device
+        out_q = torch.empty((7, B, E), dtype=torch.float32, device=dev)
+        out_qd = torch.empty((6, B, E), dtype=torch.float32, device=dev)
+        status = lib.soa_rollout_launch(
+            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *self._consts.ptrs(dev),
+            ptr(pl["gains"]), ptr(pl["inv_m"]), ptr(pl["inertia"]), ptr(pl["inv_inertia"]),
+            ptr(out_q), ptr(out_qd),
+            E, B, model.n_qd, model.contact_count, self.S,
+            *launch_tail(model, self.dt, dev),
+        )
+        kbuild.check(status, KERNEL_ROLLOUT)
+        self.launches += 1
+        return SimState(out_q.permute(2, 1, 0), out_qd.permute(2, 1, 0))
+
+
+def build_soa_rollout(integrator: SemiImplicitIntegrator, params: SimParams, dt: float,
+                      substeps: int) -> SoaRollout:
+    """The bench rollout (pallas_soa.py:1272 build_soa_rollout, without the
+    TPU-only ``e_tile`` and ``interpret``)."""
+    return SoaRollout(integrator, params, dt, substeps)

@@ -30,7 +30,8 @@ import torch
 
 from ..csrc import build as kbuild
 from .integrator import SemiImplicitIntegrator, SimParams, SimState, interval
-from .soa import THREADS_PER_BLOCK, TRACED_NAMES, pack_static, soa_static, traced_planes, window_work
+from .soa import (THREADS_PER_BLOCK, TRACED_NAMES, PackedConsts, launch_tail, ptr, traced_planes,
+                  window_work)
 
 KERNEL = "soa_interval"
 KERNEL_FWD, KERNEL_BWD, KERNEL_REDUCE = (
@@ -58,10 +59,6 @@ def _kernel_lib():
     lib.soa_interval_reduce_launch.argtypes = [P, P, I, I, I, P]
     lib.soa_interval_reduce_launch.restype = I
     return lib
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 class _IntervalFn(torch.autograd.Function):
@@ -108,7 +105,7 @@ class DiffInterval:
         self.S = int(substeps)
         self.with_res = bool(with_res)
         self.with_act = bool(with_act)
-        self._packed = {}
+        self._consts = PackedConsts(self.model)
         self.launches = {KERNEL_FWD: 0, KERNEL_BWD: 0, KERNEL_REDUCE: 0}
 
     def __call__(self, bq, bqd, tgt, act, res, *planes):
@@ -127,12 +124,6 @@ class DiffInterval:
         return _IntervalFn.apply(self, bq, bqd, tgt, act, res, *planes)
 
     # ---- kernel launches ---------------------------------------------------
-    def _consts(self, dev):
-        key = str(dev)
-        if key not in self._packed:
-            self._packed[key] = pack_static(soa_static(self.model, dev))
-        return self._packed[key]
-
     def _common(self, tgt, act, res, planes, E):
         """Checked, contiguous inputs and the argument groups shared by K2
         and K3."""
@@ -156,17 +147,12 @@ class DiffInterval:
                 raise ValueError("parameter plane %s must be float32 on %s with lane 1 or E=%d"
                                  % (n, dev, E))
             pl.append(p.contiguous())
-        c = self._consts(dev)
         pe = lambda p: int(p.shape[-1] == E and E > 1)
-        consts = [_ptr(c["body_i"]), _ptr(c["body_f"]), _ptr(c["cbody"]), _ptr(c["cf"])]
+        consts = self._consts.ptrs(dev)
         plane_args = []
         for p in pl:
-            plane_args += [_ptr(p), pe(p)]
-        g = model.gravity
-        tail = [E, B, n_qd, model.contact_count, S, self.dt, 1.0 - 0.1 * self.dt,
-                float(g[0]), float(g[1]), float(g[2]),
-                float(model.joint_attach_ke), float(model.joint_attach_kd),
-                THREADS_PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream]
+            plane_args += [ptr(p), pe(p)]
+        tail = [E, B, n_qd, model.contact_count, S] + launch_tail(model, self.dt, dev)
         return out, pl, consts, plane_args, tail
 
     def _forward(self, bq, bqd, tgt, act, res, planes, export):
@@ -189,8 +175,8 @@ class DiffInterval:
         sstate = (torch.empty((self.S, 13, B, E), dtype=torch.float32, device=dev)
                   if export else None)
         status = lib.soa_interval_fwd_launch(
-            _ptr(bq), _ptr(bqd), _ptr(seq["tgt"]), _ptr(seq["act"]), _ptr(seq["res"]),
-            *consts, *plane_args, _ptr(out_q), _ptr(out_qd), _ptr(sstate), *tail)
+            ptr(bq), ptr(bqd), ptr(seq["tgt"]), ptr(seq["act"]), ptr(seq["res"]),
+            *consts, *plane_args, ptr(out_q), ptr(out_qd), ptr(sstate), *tail)
         kbuild.check(status, KERNEL_FWD)
         self.launches[KERNEL_FWD] += 1
         return out_q, out_qd, sstate
@@ -213,9 +199,9 @@ class DiffInterval:
                                % (rows, sum(PLANE_ROWS.values())))
         dplanes = torch.empty((rows, B, E), **f32)
         status = lib.soa_interval_bwd_launch(
-            _ptr(sstate), _ptr(seq["tgt"]), _ptr(seq["act"]), _ptr(seq["res"]),
-            *consts, *plane_args, _ptr(dq), _ptr(dqd), _ptr(dbq), _ptr(dbqd),
-            _ptr(dtgt), _ptr(dact), _ptr(dres), _ptr(dplanes), *tail)
+            ptr(sstate), ptr(seq["tgt"]), ptr(seq["act"]), ptr(seq["res"]),
+            *consts, *plane_args, ptr(dq), ptr(dqd), ptr(dbq), ptr(dbqd),
+            ptr(dtgt), ptr(dact), ptr(dres), ptr(dplanes), *tail)
         kbuild.check(status, KERNEL_BWD)
         self.launches[KERNEL_BWD] += 1
 
@@ -224,7 +210,7 @@ class DiffInterval:
         if any(shared):
             summed = torch.empty((rows, B), **f32)
             status = lib.soa_interval_reduce_launch(
-                _ptr(dplanes), _ptr(summed), rows * B, E, THREADS_PER_BLOCK, tail[-1])
+                ptr(dplanes), ptr(summed), rows * B, E, THREADS_PER_BLOCK, tail[-1])
             kbuild.check(status, KERNEL_REDUCE)
             self.launches[KERNEL_REDUCE] += 1
         grads, o = [], 0

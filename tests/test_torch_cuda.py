@@ -50,7 +50,7 @@ def _inputs(model, E, F, per_env, dev, seed=5):
 def test_library_path_tracks_the_source():
     """The built library's name carries a hash of the source and flags, in
     the package's git-ignored build directory."""
-    for name in (soa.KERNEL, soa_grad.KERNEL):
+    for name in (soa.KERNEL, soa_grad.KERNEL, soa.KERNEL_ROLLOUT):
         p = kbuild.library_path(name)
         assert p.parent == kbuild.BUILD_DIR
         assert p.name.startswith("lib%s-" % name) and p.suffix == ".so"
@@ -59,12 +59,12 @@ def test_library_path_tracks_the_source():
 
 
 def test_library_path_tracks_the_shared_header(tmp_path, monkeypatch):
-    """An edit to csrc/substep.cuh renames (so rebuilds) both libraries."""
+    """An edit to csrc/substep.cuh renames (so rebuilds) every library."""
     for f in kbuild.SRC_DIR.iterdir():
         if f.suffix in (".cu", ".cuh"):
             (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(kbuild, "SRC_DIR", tmp_path)
-    before = {n: kbuild.library_path(n) for n in (soa.KERNEL, soa_grad.KERNEL)}
+    before = {n: kbuild.library_path(n) for n in (soa.KERNEL, soa_grad.KERNEL, soa.KERNEL_ROLLOUT)}
     with open(tmp_path / "substep.cuh", "a") as f:
         f.write("\n// edited\n")
     for n, p in before.items():
@@ -259,3 +259,63 @@ def test_cuda_interval_raises_without_its_library(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         di(state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0),
            tgt[:SUB].permute(0, 2, 1), None, None, *(planes[n] for n in soa.TRACED_NAMES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["a1", "chain"])
+def test_rollout_kernel_matches_plain(name):
+    """K4 against its plain version (integrator.rollout_substeps) on the
+    card, 33 substeps with penetrating contacts, random and no acts; its
+    final state equals K2's without export bit for bit (both run
+    substep.cuh). Tolerance as the window's after 33 substeps."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model(name)
+    state, tgt, act, params = _inputs(model, 64, 2, False, dev)
+    tgt, act = tgt[:SUB].contiguous(), act[:SUB].contiguous()
+    integ = tint.SemiImplicitIntegrator(model)
+    k4 = soa.build_soa_rollout(integ, params, DT, SUB)
+    planes = soa.traced_planes(model, params)
+    for acts in (act, None):
+        out = k4(state, tgt, acts)
+        ref = tint.rollout_substeps(integ, params, state, tgt, acts, DT)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.body_q).all() and torch.isfinite(out.body_qd).all()
+        torch.testing.assert_close(out.body_q, ref.body_q, rtol=0, atol=1e-5)
+        torch.testing.assert_close(out.body_qd, ref.body_qd, rtol=0, atol=5e-3)
+        di = soa_grad.DiffInterval(integ, DT, SUB, with_act=acts is not None)
+        with torch.no_grad():
+            bq, bqd = di(state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0),
+                         tgt.permute(0, 2, 1), None if acts is None else acts.permute(0, 2, 1),
+                         None, *(planes[n] for n in soa.TRACED_NAMES))
+        assert torch.equal(bq.permute(2, 1, 0), out.body_q)
+        assert torch.equal(bqd.permute(2, 1, 0), out.body_qd)
+    assert k4.launches == 2
+
+
+@pytest.mark.cuda
+def test_cuda_rollout_raises_without_its_library(monkeypatch):
+    """A CUDA tensor never takes K4's plain path: a missing library raises."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model("chain")
+    state, tgt, _, params = _inputs(model, 8, 2, False, dev)
+
+    def missing(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kbuild, "load", missing)
+    k4 = soa.build_soa_rollout(tint.SemiImplicitIntegrator(model), params, DT, SUB)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        k4(state, tgt[:SUB].contiguous(), None)
+    assert k4.launches == 0
+
+
+@pytest.mark.cuda
+def test_rollout_rejects_per_env_params_on_cuda():
+    """The TPU kernel bakes in shared parameters; so does K4's wrapper."""
+    _need_gpu()
+    model = _model("a1")
+    _, _, _, params = _inputs(model, 8, 2, True, torch.device("cuda"))
+    with pytest.raises(ValueError, match="per-env"):
+        soa.build_soa_rollout(tint.SemiImplicitIntegrator(model), params, DT, SUB)
