@@ -18,36 +18,42 @@ Phases (any failure exits non-zero):
     frame starts spread over [0, 24]: one warm-up and 3 timed rollouts, with
     the launch counts set to 0 just before and read just after; then the
     kernel held against the plain version on the main path's own inputs,
-    each timed with CUDA events;
+    each timed with CUDA events, the kernel also by its device time under
+    torch.profiler;
  5. interval kernels vs plain: K2 (soa_interval_fwd) values and K3
     (soa_interval_bwd + its env reduction) gradients against the plain
-    interval with autograd, on a1 and the chain, shared and per-env planes,
-    with and without acts, E=256, 33 substeps, penetrating contacts, for the
-    loss sum(w * outputs) with seeded weights: K3 on the plain forward's own
-    substep states, every env, and end to end; and K2 chained over a window
-    against K1, bit for bit;
+    interval with autograd, on a1 and the chain at E=256 and on the chain
+    with 45 contacts (two chunks of 32 lanes) at E=1027 (8 envs per CTA, the
+    last CTA holding 3), shared and per-env planes, with and without acts,
+    33 substeps, penetrating contacts, for the loss sum(w * outputs) with
+    seeded weights: K3 on the plain forward's own substep states, every
+    env, and (at E=256) end to end; and K2 chained over a window against
+    K1, bit for bit;
  6. training main path: the port's phys_model on a1 with the committed clip,
     num_envs=512, frames_per_wdw=24, default loss weights and noise_std:
     one warm-up and 3 timed forward()+update() steps, with the launch counts
     set to 0 just before and read just after (one K2, K3 and reduction per
     interval and step); the peak device memory; 2 more steps under
     torch.profiler (device busy share, time by kernel); then K2 and K3 timed
-    alone on the main path's own first-interval inputs and held against the
-    plain interval with autograd there; last the training loop's
+    alone on the main path's own first-interval inputs (each wrapper by
+    CUDA events, each kernel's device time by torch.profiler) and held
+    against the plain interval with autograd there; last the training loop's
     full-sequence eval (1 env, K1, no gradient), its launch count read, and
     K1 held against the plain rollout on that eval's inputs;
  7. the bench rollout kernel K4 (soa_rollout) vs plain
-    (integrator.rollout_substeps) on a1 and the chain, shared planes, E=256,
-    33 substeps, penetrating contacts, random and zero acts; K4's final
-    state equal to K2's (soa_interval_fwd without export) bit for bit, no
-    acts equal to zero acts, per-env parameters rejected, K4 timed;
+    (integrator.rollout_substeps) on a1 and the chain at E=256 and the
+    45-contact chain at E=1027, shared planes, 33 substeps, penetrating
+    contacts, random and zero acts; K4's final state equal to K2's
+    (soa_interval_fwd without export) bit for bit, no acts equal to zero
+    acts, per-env parameters rejected, K4 timed;
  8. the bench main path through ppr_diffphys_torch.bench's own functions,
     on a1 at the bench's width: rollout, 4096 envs x 990 substeps (30 K4
     calls of 33 substeps per rep), one warm-up and 3 timed reps with the
     launch count set to 0 just before and read just after (exactly 30 per
     rep), the busy share of one profiled rep, K4 alone on the main path's
-    inputs timed and held against plain, and a whole rep held against plain
-    on 64 envs; train, 4096 envs x 10 intervals of 33 substeps, the same
+    inputs timed (its wrapper by CUDA events, its device time by
+    torch.profiler) and held against plain, and a whole rep held against
+    plain on 64 envs; train, 4096 envs x 10 intervals of 33 substeps, the same
     way (exactly 10 K2, K3 and reduction launches per rep, finite loss,
     finite non-zero gradients), K2 values and K3 gradients (every env, and
     the env reduction over the 4096 envs' partials) at the plain
@@ -56,7 +62,11 @@ Phases (any failure exits non-zero):
     the plain version on the CPU; last K2 values and K3 gradients of one
     83-substep interval (the 24 Hz case) at E=256 at the plain
     linearization point;
- then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
+ then a line quoting (not measuring) each kernel's time before the
+    warp-per-env redesign of K3 and K4, a ``kernels`` JSON line (``ms`` the
+    wrapper's time by CUDA events, ``device_ms`` its kernels' device time by
+    torch.profiler, both measured in this run; ``design`` warp-per-env or
+    thread-per-env), the nvidia-smi line, and as the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX. Without a GPU, or run from a directory that
@@ -77,6 +87,16 @@ E_TRAIN, F_TRAIN = 512, 24
 BENCH_STEPS = 990  # the bench's substeps per rep (ppr_diffphys_torch/bench.py)
 E_DEEP = 64  # envs of the bench rollout held against plain over a whole rep
 E_SMALL = 8  # envs of the bench training workload held against plain on the CPU
+# envs of the 45-contact chain's cases: 8 envs per CTA (sim/soa.py:envs_per_cta),
+# 129 CTAs, the last holding 3
+E_RAGGED = 1027
+# Quoted, not measured by this run: each kernel's wrapper time by CUDA
+# events at the main path's shapes before the warp-per-env redesign of K3
+# and K4 (this script on the thread-per-env kernels, NVIDIA H100 80GB HBM3
+# at 700 W; PERF.md's kernel table). Printed on a line of its own, never in
+# the kernels line.
+QUOTED_THREAD_PER_ENV_MS = {"soa_window": 19.643, "soa_interval_fwd": 0.810,
+                            "soa_interval_bwd": 1.850, "soa_rollout": 0.871}
 
 # Kernel vs plain tolerances (absolute). Both run fp32 on the card; the
 # kernel contracts multiply-adds into FMAs and sums in another order, so the
@@ -147,6 +167,30 @@ def cuda_time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def device_ms(fn, n, per_call):
+    """Device time per call of fn()'s kernels ``per_call`` ({name part:
+    launches per call}), by torch.profiler over n calls (fn ran once
+    before): each kernel's mean over the launches the profiler recorded,
+    times its launches per call. Late in a process that has profiled
+    before, the profiler can drop launches; the recorded counts are logged.
+    Fails when it records none. Beside the wrapper's time by CUDA events
+    (``cuda_time_ms``): where a kernel is shorter than its wrapper's host
+    work, back-to-back wrapper calls measure the host's pace."""
+    from ppr_diffphys_torch.utils import h100
+
+    _, rows = h100.kernel_times(fn, n)
+    total, seen = 0.0, {}
+    for name, k in per_call.items():
+        ms = sum(r[0] for r in rows if name in r[2])
+        got = sum(r[1] for r in rows if name in r[2])
+        if ms <= 0 or got <= 0:
+            fail("torch.profiler recorded no device time for %s" % name)
+        total += ms / got * k
+        seen[name] = "%d of %d" % (round(got * n), k * n)
+    log("  device time by torch.profiler, launches recorded: %s" % json.dumps(seen))
+    return total
 
 
 def profile_steps(step, n, E, F):
@@ -563,7 +607,9 @@ def main():
     state, ref_t = server.prologue(frame_start)
     params = m._sim_params()
     prologue_ms, _ = cuda_time_ms(lambda: server.prologue(frame_start), 3)
-    kern_ms, kout = cuda_time_ms(lambda: server.window(state, ref_t, None, params), 3)
+    k1_call = lambda: server.window(state, ref_t, None, params)
+    kern_ms, kout = cuda_time_ms(k1_call, 3)
+    k1_dev_ms = device_ms(k1_call, 3, {soa.KERNEL: 1})
     plain_ms, pout = cuda_time_ms(
         lambda: tint.rollout(m.integrator, params, state, ref_t, None, None, m.dt, sub), 1)
     errs = max_errs(kout, pout)
@@ -572,16 +618,20 @@ def main():
     log("  body_q max|kernel-plain| per frame: %s" % [float("%.3g" % x) for x in per_frame])
     work = soa.window_work(m.env, E_MAIN, sub, F_MAIN)
     k1_roof = h100.roofline(work["bytes"], work["ops"])
-    log("phase 4 times: prologue %.3f ms, soa_window %.3f ms, plain %.1f ms; bound %.4f ms "
+    log("phase 4 times: prologue %.3f ms, soa_window %.3f ms by CUDA events (%.3f ms of "
+        "device time), plain %.1f ms; bound %.4f ms "
         "(%d bytes -> %.4f ms, %d fp32 ops (%d per env-substep) -> %.4f ms)"
-        % (prologue_ms, kern_ms, plain_ms, k1_roof["ms"], work["bytes"], k1_roof["bytes_ms"],
+        % (prologue_ms, kern_ms, k1_dev_ms, plain_ms, k1_roof["ms"], work["bytes"],
+           k1_roof["bytes_ms"],
            work["ops"], work["per_env_substep"], k1_roof["ops_ms"]))
 
     # ---- 5. interval kernels vs plain on the card ----------------------------
     t0 = time.time()
     S_i = sub
-    for mname, model in (("a1", a1), ("chain", synthetic.chain_model())):
-        q, qd, tgt, act = synthetic.window_problem(model, E_CHECK, sub, 2, seed=SEED + 1)
+    cases = (("a1", a1, E_CHECK), ("chain", synthetic.chain_model(), E_CHECK),
+             ("chain45", synthetic.chain_model(extra_boxes=True), E_RAGGED))
+    for mname, model, Ec in cases:
+        q, qd, tgt, act = synthetic.window_problem(model, Ec, sub, 2, seed=SEED + 1)
         bq, bqd = eval_fk(model, torch.as_tensor(q), torch.as_tensor(qd))
         bq = synthetic.grounded(model, bq.numpy(), seed=SEED + 1)
         state = tint.SimState(torch.as_tensor(bq, device=dev), bqd.to(dev))
@@ -592,15 +642,15 @@ def main():
         integ = tint.SemiImplicitIntegrator(model)
         rng = np.random.RandomState(SEED + 3)
         B = model.n_links
-        w = (torch.as_tensor(rng.randn(7, B, E_CHECK).astype(np.float32), device=dev),
-             torch.as_tensor(rng.randn(6, B, E_CHECK).astype(np.float32), device=dev))
+        w = (torch.as_tensor(rng.randn(7, B, Ec).astype(np.float32), device=dev),
+             torch.as_tensor(rng.randn(6, B, Ec).astype(np.float32), device=dev))
         bq_p = state.body_q.permute(2, 1, 0).contiguous()
         bqd_p = state.body_qd.permute(2, 1, 0).contiguous()
         tgt_p = torch.as_tensor(tgt[:S_i], device=dev).permute(0, 2, 1).contiguous()
         act_p = torch.as_tensor(act[:S_i], device=dev).permute(0, 2, 1).contiguous()
         for planes in ("shared", "per_env"):
             ke, kd, mass, norm_I = synthetic.sim_params_np(
-                model, E_CHECK if planes == "per_env" else None, seed=SEED)
+                model, Ec if planes == "per_env" else None, seed=SEED)
             t = lambda x: torch.as_tensor(x, device=dev)
             I = t(norm_I) * t(mass)[..., None, None]
             params = tint.SimParams(t(mass), 1.0 / t(mass), I, torch.linalg.inv(I),
@@ -613,7 +663,8 @@ def main():
                     lambda *a: tint.interval(integ, m.dt, *a),
                     bq_p, bqd_p, tgt_p, acts, *param_planes(model, params), w)
                 torch.cuda.synchronize()
-                label = "phase 5 %s/%s/%s" % (mname, planes, "act" if acts is not None else "no-act")
+                label = "phase 5 %s/%s/%s (E=%d, %d contacts)" % (
+                    mname, planes, "act" if acts is not None else "no-act", Ec, model.contact_count)
                 verr = {"q": float((qk - qp).abs().max()), "qd": float((qdk - qdp).abs().max())}
                 check_errs(label + " K2 values", verr, TOL_INTERVAL)
                 want = {"fwd": 1, "bwd": 1, "reduce": 0 if planes == "per_env" else 1}
@@ -622,8 +673,13 @@ def main():
                     fail("%s: launches %s, expected %s" % (label, got, want))
                 ref, got = linearized_grads(label, di, bq_p, bqd_p, tgt_p, acts,
                                             *param_planes(model, params), w)
-                check_grads(label, grad_errors(ref, got, E_CHECK), E_CHECK, linearized=True)
-                check_grads(label, grad_errors(gp, gk, E_CHECK), E_CHECK, linearized=False)
+                check_grads(label, grad_errors(ref, got, Ec), Ec, linearized=True)
+                # check (b) on the 256-env cases only: at 1027 envs and 45
+                # contacts more envs cross a contact kink between the two
+                # forwards, and an env sum (shared ke, kd, mass) carries each
+                # such env's jump (measured 2.4e-3 for the sum of one jump)
+                if Ec == E_CHECK:
+                    check_grads(label, grad_errors(gp, gk, Ec), Ec, linearized=False)
     # K2 chained over a window reproduces K1 bit for bit (both run substep.cuh)
     q, qd, tgt, _ = synthetic.window_problem(a1, E_CHECK, sub, F_CHECK, seed=SEED)
     bq, bqd = eval_fk(a1, torch.as_tensor(q), torch.as_tensor(qd))
@@ -722,10 +778,13 @@ def main():
     B = tm.n_links
     dq = torch.as_tensor(rng.randn(7, B, E_TRAIN).astype(np.float32), device=dev)
     dqd = torch.as_tensor(rng.randn(6, B, E_TRAIN).astype(np.float32), device=dev)
-    k2_ms, (kq, kqd, sstate) = cuda_time_ms(
-        lambda: di._forward(bq0, bqd0, tgt0, None, None, planes0, True), 10)
-    k3_ms, kg = cuda_time_ms(
-        lambda: di._backward(sstate, tgt0, None, None, planes0, dq, dqd), 3)
+    k2_call = lambda: di._forward(bq0, bqd0, tgt0, None, None, planes0, True)
+    k2_ms, (kq, kqd, sstate) = cuda_time_ms(k2_call, 10)
+    k2_dev_ms = device_ms(k2_call, 10, {soa_grad.KERNEL_FWD: 1})
+    k3_call = lambda: di._backward(sstate, tgt0, None, None, planes0, dq, dqd)
+    k3_ms, kg = cuda_time_ms(k3_call, 10)
+    k3_dev_ms = device_ms(k3_call, 10, {soa_grad.KERNEL_BWD: 1,
+                                         **({soa_grad.KERNEL_REDUCE: 1} if shared else {})})
 
     def plain_fwd():
         ins = [bq0.clone().requires_grad_(), bqd0.clone().requires_grad_(),
@@ -752,15 +811,18 @@ def main():
     k2_roof = h100.roofline(iw["fwd_bytes"], iw["fwd_ops"])
     k3_roof = h100.roofline(iw["bwd_bytes"], iw["bwd_ops"])
     step_ms = float(np.median(steps)) * 1e3
-    log("phase 6 interval times (E=%d, %d substeps, first interval of the main path): "
-        "K2 %.3f ms (bound %.4f ms: bytes %.4f, ops %.4f), plain forward %.1f ms; "
-        "K3 incl. reduce %.3f ms (bound %.4f ms: bytes %.4f, ops %.4f; %d active "
+    log("phase 6 interval times (E=%d, %d substeps, first interval of the main path; "
+        "wrappers by CUDA events over 10 calls, device time by torch.profiler): "
+        "K2 %.3f ms (%.3f ms of device time; bound %.4f ms: bytes %.4f, ops %.4f), plain "
+        "forward %.1f ms; K3 incl. reduce %.3f ms (%.3f ms of device time; bound %.4f ms: "
+        "bytes %.4f, ops %.4f; %d active "
         "contact-substeps of %d), plain backward %.1f ms; per step %d+%d launches -> "
-        "K2 %.1f%% and K3 %.1f%% of the median step"
-        % (E_TRAIN, sub, k2_ms, k2_roof["ms"], k2_roof["bytes_ms"], k2_roof["ops_ms"], p2_ms,
-           k3_ms, k3_roof["ms"], k3_roof["bytes_ms"], k3_roof["ops_ms"], n_act,
-           E_TRAIN * sub * tm.env.contact_count,
-           p3_ms, n_int, n_int, 100 * n_int * k2_ms / step_ms, 100 * n_int * k3_ms / step_ms))
+        "device time of K2 %.1f%% and of K3 %.1f%% of the median step"
+        % (E_TRAIN, sub, k2_ms, k2_dev_ms, k2_roof["ms"], k2_roof["bytes_ms"],
+           k2_roof["ops_ms"], p2_ms,
+           k3_ms, k3_dev_ms, k3_roof["ms"], k3_roof["bytes_ms"], k3_roof["ops_ms"], n_act,
+           E_TRAIN * sub * tm.env.contact_count, p3_ms, n_int, n_int,
+           100 * n_int * k2_dev_ms / step_ms, 100 * n_int * k3_dev_ms / step_ms))
 
     # the training loop's full-sequence eval (ppr_diffphys_torch/main.py):
     # no gradient, the whole window on K1, held against the plain rollout
@@ -794,8 +856,10 @@ def main():
 
     # ---- 7. the bench rollout kernel K4 vs plain on the card --------------------
     t0 = time.time()
-    for mname, model in (("a1", a1), ("chain", synthetic.chain_model())):
-        q, qd, tgt, act = synthetic.window_problem(model, E_CHECK, sub, 2, seed=SEED + 5)
+    cases = (("a1", a1, E_CHECK), ("chain", synthetic.chain_model(), E_CHECK),
+             ("chain45", synthetic.chain_model(extra_boxes=True), E_RAGGED))
+    for mname, model, Ec in cases:
+        q, qd, tgt, act = synthetic.window_problem(model, Ec, sub, 2, seed=SEED + 5)
         bq, bqd = eval_fk(model, torch.as_tensor(q), torch.as_tensor(qd))
         bq = synthetic.grounded(model, bq.numpy(), seed=SEED + 5)
         state = tint.SimState(torch.as_tensor(bq, device=dev), bqd.to(dev))
@@ -814,7 +878,7 @@ def main():
         pl = soa.traced_planes(model, params)
         x0, xd0 = state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0)
         for aname, acts in (("act", act), ("zero-act", torch.zeros_like(act))):
-            label = "phase 7 %s/%s" % (mname, aname)
+            label = "phase 7 %s/%s (E=%d, %d contacts)" % (mname, aname, Ec, model.contact_count)
             out = k4(state, tgt, acts)
             ref = tint.rollout_substeps(integ, params, state, tgt, acts, m.dt)
             torch.cuda.synchronize()
@@ -823,7 +887,8 @@ def main():
             check_errs(label + " K4 values", {"q": float((out[0] - ref[0]).abs().max()),
                                               "qd": float((out[1] - ref[1]).abs().max())},
                        TOL_INTERVAL)
-            # K2 without its export runs the same substeps of substep.cuh
+            # K2 without its export runs the same substep units (substep.cuh)
+            # one thread per env; the warp-per-env K4 keeps its order of sums
             di = soa_grad.DiffInterval(integ, m.dt, sub, with_act=True)
             with torch.no_grad():
                 x, xd = di(x0, xd0, tgt.permute(0, 2, 1), acts.permute(0, 2, 1), None,
@@ -838,7 +903,7 @@ def main():
         log("  phase 7 %s: K4 == K2 (soa_interval_fwd) final state, bit for bit; "
             "acts None == zero acts" % mname)
         try:
-            ke, kd, mass, norm_I = synthetic.sim_params_np(model, E_CHECK, seed=SEED)
+            ke, kd, mass, norm_I = synthetic.sim_params_np(model, Ec, seed=SEED)
             I = t(norm_I) * t(mass)[..., None, None]
             soa.build_soa_rollout(integ, tint.SimParams(
                 t(mass), 1.0 / t(mass), I, torch.linalg.inv(I), t(ke), t(kd)), m.dt, sub)
@@ -846,10 +911,10 @@ def main():
         except ValueError:
             pass
         k4_ms, _ = cuda_time_ms(lambda: k4(state, tgt, act), 10)
-        w4 = soa.rollout_work(model, E_CHECK, sub)
+        w4 = soa.rollout_work(model, Ec, sub)
         roof = h100.roofline(w4["bytes"], w4["ops"])
         log("  phase 7 %s E=%d, %d substeps: soa_rollout %.3f ms (bound %.4f ms by %s)"
-            % (mname, E_CHECK, sub, k4_ms, roof["ms"], roof["by"]))
+            % (mname, Ec, sub, k4_ms, roof["ms"], roof["by"]))
     log("phase 7 K4 vs plain: ok, per-env parameters rejected (%.1f s)" % (time.time() - t0))
 
     # ---- 8. the bench main path (ppr_diffphys_torch.bench) -------------------------
@@ -880,7 +945,9 @@ def main():
            E_MAIN * rb.steps / wall, "not measured" if busy is None else "%.4f" % busy,
            roof["ms"], roof["by"]))
     # K4 alone on the main path's first-call inputs, vs plain
-    k4_ms, k4_out = cuda_time_ms(lambda: rb.kernel(work.state, rb.tgt, rb.act), 10)
+    k4_call = lambda: rb.kernel(work.state, rb.tgt, rb.act)
+    k4_ms, k4_out = cuda_time_ms(k4_call, 10)
+    k4_dev_ms = device_ms(k4_call, 10, {soa.KERNEL_ROLLOUT: 1})
     p4_ms, p4_out = cuda_time_ms(lambda: tint.rollout_substeps(
         work.integrator, rb.kernel.params, work.state, rb.tgt, rb.act, m.dt), 1)
     k4_err = {"q": float((k4_out[0] - p4_out[0]).abs().max()),
@@ -888,9 +955,10 @@ def main():
     check_errs("phase 8 main-path K4 call", k4_err, TOL_INTERVAL)
     w4 = soa.rollout_work(work.model, E_MAIN, sub)
     k4_roof = h100.roofline(w4["bytes"], w4["ops"])
-    log("phase 8 K4 per launch (E=%d, %d substeps): %.3f ms, plain %.1f ms; bound %.4f ms "
+    log("phase 8 K4 per launch (E=%d, %d substeps): %.3f ms by CUDA events over 10 calls "
+        "(%.3f ms of device time by torch.profiler), plain %.1f ms; bound %.4f ms "
         "(%d bytes -> %.4f ms, %d fp32 ops -> %.4f ms)"
-        % (E_MAIN, sub, k4_ms, p4_ms, k4_roof["ms"], w4["bytes"], k4_roof["bytes_ms"],
+        % (E_MAIN, sub, k4_ms, k4_dev_ms, p4_ms, k4_roof["ms"], w4["bytes"], k4_roof["bytes_ms"],
            w4["ops"], k4_roof["ops_ms"]))
     # the whole rep against the plain version on the first E_DEEP envs
     sl = tint.SimState(work.state.body_q[:E_DEEP].contiguous(),
@@ -1038,6 +1106,8 @@ def main():
         "bound_ms": k1_roof["ms"],
         "bound_by": k1_roof["by"],
         "library_ms": None,
+        "design": "thread-per-env",
+        "device_ms": k1_dev_ms,
     }, {
         "name": soa_grad.KERNEL_FWD,
         "route": "cuda",
@@ -1050,6 +1120,8 @@ def main():
         "bound_ms": k2_roof["ms"],
         "bound_by": k2_roof["by"],
         "library_ms": None,
+        "design": "thread-per-env",
+        "device_ms": k2_dev_ms,
     }, {
         # K3's row counts its launches together with the env reduction's
         "name": soa_grad.KERNEL_BWD,
@@ -1064,6 +1136,8 @@ def main():
         "bound_ms": k3_roof["ms"],
         "bound_by": k3_roof["by"],
         "library_ms": None,
+        "design": "warp-per-env",
+        "device_ms": k3_dev_ms,
     }, {
         "name": soa.KERNEL_ROLLOUT,
         "route": "cuda",
@@ -1076,7 +1150,12 @@ def main():
         "bound_ms": k4_roof["ms"],
         "bound_by": k4_roof["by"],
         "library_ms": None,
+        "design": "warp-per-env",
+        "device_ms": k4_dev_ms,
     }]
+    log("quoted from PERF.md, not measured in this run: wrapper ms by CUDA events before "
+        "the warp-per-env redesign of K3 and K4 (NVIDIA H100 80GB HBM3 at 700 W): %s"
+        % json.dumps(QUOTED_THREAD_PER_ENV_MS))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

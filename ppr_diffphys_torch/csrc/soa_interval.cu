@@ -6,38 +6,48 @@
 // pallas_call :473) and backward `bwd_call` (:483-535, kernel :255-407,
 // pallas_call :526), the pair under its custom_vjp (:537-565).
 //
-// - K2 `soa_interval_fwd` runs the S substeps of substep.cuh on (bq, bqd).
-//   When the caller needs gradients it also writes the state entering each
-//   substep to a (S, 13, B, E) buffer (the TPU kernel's `with_sr` export);
-//   a primal-only call passes no buffer and writes nothing there.
+// - K2 `soa_interval_fwd` runs the S substeps of substep.cuh on (bq, bqd),
+//   one thread per env. When the caller needs gradients it also writes the
+//   state entering each substep to a (S, 13, B, E) buffer (the TPU kernel's
+//   `with_sr` export); a primal-only call passes no buffer and writes
+//   nothing there.
 // - K3 `soa_interval_bwd` sweeps j = S-1 .. 0: it reads the state entering
-//   substep j, recomputes that substep's contact and joint forces in the
-//   thread's local memory, and applies the hand-derived adjoint of
-//   integrate -> joints -> contacts (the TPU kernel gets it from an
-//   in-kernel jax.vjp). It writes d(state0), dtgt[j] (+ dact[j], dres[j])
-//   and per-env partial gradients of the 25 parameter-plane rows per body.
-// - `soa_interval_reduce` sums those partials over envs in a fixed order
-//   (one thread per row, envs in ascending order) for the shared (lane-1)
-//   planes: deterministic, no atomics. The TPU kernel does this sum in its
-//   own body (pallas_soa_grad.py:399-407).
+//   substep j, recomputes that substep's contact and joint forces, and
+//   applies the hand-derived adjoint of integrate -> joints -> contacts (the
+//   TPU kernel gets it from an in-kernel jax.vjp). It writes d(state0),
+//   dtgt[j] (+ dact[j], dres[j]) and per-env partial gradients of the 25
+//   parameter-plane rows per body.
+// - `soa_interval_reduce` sums those partials over envs for the shared
+//   (lane-1) planes in a fixed order: deterministic, no atomics. The TPU
+//   kernel does this sum in its own body (pallas_soa_grad.py:399-407).
 //
 // Ties at kinks (min/max/clamp at equality, |x| at 0) are measure-zero:
 // clamps pass the gradient on the closed range, fminf(a, b) sends it to a
 // when a < b and to b otherwise, |x| has derivative sign(x) with sign(0)=0.
 //
-// What bounds it on an H100: operations, like K1 (~10^4 fp32 operations
-// per env-substep forward, ~3x that backward, on ~10^2 bytes per substep
-// of targets and exported state). The design is K1's: one thread per env,
-// the whole articulation state and its adjoint in local memory, env
-// innermost in every array. At training widths (512 envs) that occupies
-// 16 warps of the card: latency-bound, and left to a later change.
+// What bounds them on an H100: operations (~10^4 fp32 operations per
+// env-substep forward, ~3x that backward, on ~10^2 bytes per substep of
+// targets and exported state). At training widths (512 envs) one thread
+// per env fills 16 warps of the card and leaves every unit's work serial,
+// so K3 runs one warp per env instead (substep_warp.cuh):
+// - 1-8 consecutive envs per CTA (sim/soa.py:envs_per_cta): 128 CTAs of
+//   4 warps at 512 envs, 512 of 8 at 4096.
+// - Lane l recomputes body l's forces with K4's warp force pass (contacts
+//   in chunks of 32 lanes, then joints), then runs the adjoint of body l's
+//   integration, of the joint whose child is body l and of contacts l,
+//   l+32, ... Each writes its cotangent contributions into shared-memory
+//   slots; body l's lane sums its d(state) in the thread loop's order:
+//   integration, then the joints j = 0..B-1 that touch it, then its
+//   contacts in contact order.
+// - The state entering substep j-1 and its targets/acts are fetched from
+//   the export with cp.async into a shared double buffer while substep j
+//   is computed; a CTA of consecutive envs reads whole 32-byte sectors.
+// - The reduction takes one warp per plane row: lane l sums envs l, l+32,
+//   ... in ascending order and a fixed butterfly of shuffles combines the
+//   32 partials.
+// K2 keeps one thread per env and substep.cuh's loop.
 
-#include "substep.cuh"
-
-#define N_PLANE_ROWS 25  // gains: ke 0-2, kd 3-5; inv_m 6; inertia 7-15; inv_inertia 16-24
-#define PR_INV_M 6
-#define PR_INERTIA 7
-#define PR_INV_INERTIA 16
+#include "substep_warp.cuh"
 
 namespace {
 
@@ -145,26 +155,48 @@ __device__ __forceinline__ void kasin_adj(float x, float g, float& dx) {
   if (x >= -1.0f && x <= 1.0f) dx += gy;
 }
 
-// ---- the adjoint of one substep's pieces ---------------------------------
 
-// joint_force (substep.cuh): cotangent g of the dof force -> dq, dqd, the
-// gains rows of body b, dtgt/dact of the dof
-__device__ __forceinline__ void joint_force_adj(const Args& a, const BwdArgs& w,
-                                                const float* bf, const int* bi, int k,
-                                                int b, int e, size_t srow, float q,
-                                                float qd, float g, float& dq, float& dqd,
-                                                float* dpl) {
+// ---- the adjoint of one substep's units ------------------------------------
+
+// d[k * stride] = (t, q, w, v)[k], k < 13
+__device__ __forceinline__ void put_state(float* d, int stride, V3 t, Q4 q, V3 w, V3 v) {
+  d[0] = t.x; d[stride] = t.y; d[2 * stride] = t.z;
+  d[3 * stride] = q.x; d[4 * stride] = q.y; d[5 * stride] = q.z; d[6 * stride] = q.w;
+  d[7 * stride] = w.x; d[8 * stride] = w.y; d[9 * stride] = w.z;
+  d[10 * stride] = v.x; d[11 * stride] = v.y; d[12 * stride] = v.z;
+}
+
+__device__ __forceinline__ void add_state(float* d, V3 t, Q4 q, V3 w, V3 v) {
+  d[0] += t.x; d[1] += t.y; d[2] += t.z;
+  d[3] += q.x; d[4] += q.y; d[5] += q.z; d[6] += q.w;
+  d[7] += w.x; d[8] += w.y; d[9] += w.z;
+  d[10] += v.x; d[11] += v.y; d[12] += v.z;
+}
+
+// Where a joint's dof cotangents go: dtgt/dact of substep j and env e,
+// dof d at [d * E] (dact null without acts).
+struct DofOut {
+  float* dtgt;
+  float* dact;
+  int E;
+};
+
+// joint_force (substep.cuh) of dof k, reversed: cotangent g of the dof
+// force -> dq, dqd, the gains rows k and 3+k of dpl (row stride rs), and
+// dtgt/dact of the dof.
+__device__ __forceinline__ void joint_force_adj(const float* bf, const WarpDrive& d, int k,
+                                                float q, float qd, float g, float& dq,
+                                                float& dqd, float* dpl, int rs,
+                                                const DofOut& o) {
   float lo = bf[20 + k], hi = bf[23 + k], lke = bf[26 + k], lkd = bf[29 + k];
-  float ke = plane(a.gains, a.gains_pe, k, b, e, a.B, a.E);
-  float kd = plane(a.gains, a.gains_pe, 3 + k, b, e, a.B, a.E);
-  int dof = bi[2 + k];
-  float tg = a.tgt[(srow + dof) * a.E + e];
+  float ke = d.ke(k), kd = d.kd(k), tg = d.tg(k);
+  int dof = d.bi[2 + k];
   dq += g * ke;
   dqd += g * kd;
-  dpl[k] += g * (q - tg);
-  dpl[3 + k] += g * qd;
-  w.dtgt[(srow + dof) * a.E + e] -= g * ke;
-  if (w.dact) w.dact[(srow + dof) * a.E + e] += g;
+  dpl[k * rs] += g * (q - tg);
+  dpl[(3 + k) * rs] += g * qd;
+  o.dtgt[(size_t)dof * o.E] -= g * ke;
+  if (o.dact) o.dact[(size_t)dof * o.E] += g;
   // out = ... - limit_f; the `above` branch overrides `below`
   if (q > hi) {
     dq += g * lke;
@@ -175,30 +207,15 @@ __device__ __forceinline__ void joint_force_adj(const Args& a, const BwdArgs& w,
   }
 }
 
-__device__ __forceinline__ void add_state(float* d, V3 t, Q4 q, V3 w, V3 v) {
-  d[0] += t.x; d[1] += t.y; d[2] += t.z;
-  d[3] += q.x; d[4] += q.y; d[5] += q.z; d[6] += q.w;
-  d[7] += w.x; d[8] += w.y; d[9] += w.z;
-  d[10] += v.x; d[11] += v.y; d[12] += v.z;
-}
-
-// Symplectic Euler of body b: dn = cotangent of its new state -> dS (its
-// entering state), dF (its torque/force total) and its plane rows.
-__device__ void integrate_adj(const Args& a, const EnvState& st, int b, int e,
-                              const float* dn, float* dS, float* dF, float* dpl) {
-  const int B = a.B, E = a.E;
-  const float* bf = a.body_f + (size_t)b * BODY_F;
-  Q4 q_c = getq(st, b);
-  V3 w_c = getw(st, b), v_c = getv(st, b);
-  V3 comc = ld3(bf + 14);
-  V3 tq = {st.ft[b][0], st.ft[b][1], st.ft[b][2]};
-  V3 fo = {st.ff[b][0], st.ff[b][1], st.ff[b][2]};
-  float inv_m = plane(a.inv_m, a.inv_m_pe, 0, b, e, B, E);
-  float I[9], Ii[9];
-  for (int k = 0; k < 9; ++k) {
-    I[k] = plane(a.inertia, a.inertia_pe, k, b, e, B, E);
-    Ii[k] = plane(a.inv_inertia, a.inv_inertia_pe, k, b, e, B, E);
-  }
+// Symplectic Euler of one body (state s, totals tq/fo), reversed: dn =
+// cotangent of its new state -> dS (its entering state, added), dF (its
+// torque/force totals) and its plane rows dpl[r * rs].
+__device__ __forceinline__ void integrate_adj(const Args& a, const Body& s, V3 tq, V3 fo,
+                                              V3 comc, float inv_m, const float* I,
+                                              const float* Ii, const float* dn, float* dS,
+                                              float* dF, float* dpl, int rs) {
+  Q4 q_c = s.q;
+  V3 w_c = s.w, v_c = s.v;
   // forward recompute
   V3 v1 = {v_c.x + (fo.x * inv_m + a.gx) * a.dt,
            v_c.y + (fo.y * inv_m + a.gy) * a.dt,
@@ -259,7 +276,7 @@ __device__ void integrate_adj(const Args& a, const EnvState& st, int b, int e,
   float gtb[3] = {0.0f, 0.0f, 0.0f};
   for (int i = 0; i < 3; ++i) {
     for (int k = 0; k < 3; ++k) {
-      dpl[PR_INV_INERTIA + 3 * i + k] += gIt[i] * tbv[k];
+      dpl[(PR_INV_INERTIA + 3 * i + k) * rs] += gIt[i] * tbv[k];
       gtb[k] += Ii[3 * i + k] * gIt[i];
     }
   }
@@ -272,7 +289,7 @@ __device__ void integrate_adj(const Args& a, const EnvState& st, int b, int e,
   float gwb[3] = {0.0f, 0.0f, 0.0f};
   for (int i = 0; i < 3; ++i) {
     for (int k = 0; k < 3; ++k) {
-      dpl[PR_INERTIA + 3 * i + k] += gIw[i] * wbv[k];
+      dpl[(PR_INERTIA + 3 * i + k) * rs] += gIw[i] * wbv[k];
       gwb[k] += I[3 * i + k] * gIw[i];
     }
   }
@@ -285,7 +302,7 @@ __device__ void integrate_adj(const Args& a, const EnvState& st, int b, int e,
   V3 g_xcom = g_x1;
   acc(g_v1, scale(g_x1, a.dt));
   V3 g_fo = scale(g_v1, inv_m * a.dt);
-  dpl[PR_INV_M] += dot(g_v1, fo) * a.dt;
+  dpl[PR_INV_M * rs] += dot(g_v1, fo) * a.dt;
   // x_com = t_c + qrot(q_c, comc)
   qrot_adj(q_c, comc, g_xcom, g_qc, dv);
   add_state(dS, g_xcom, g_qc, g_wc, g_v1);
@@ -293,34 +310,120 @@ __device__ void integrate_adj(const Args& a, const EnvState& st, int b, int e,
   dF[3] = g_fo.x; dF[4] = g_fo.y; dF[5] = g_fo.z;
 }
 
-// The joint of body b (child b, parent p): dF -> dS of b and p, dtgt/dact
-// and the gains rows of b.
-__device__ void joint_adj(const Args& a, const BwdArgs& w, const EnvState& st, int b,
-                          int e, int s, const float (*dF)[6], float (*dS)[13],
-                          float (*dpl)[N_PLANE_ROWS]) {
-  const int* bi = a.body_i + (size_t)b * BODY_I;
-  const float* bf = a.body_f + (size_t)b * BODY_F;
+// ---- K3's per-lane phases ----------------------------------------------------
+
+// Lanes fetch the state entering substep j (13 rows of the export) into a
+// mirror [k][b] and its targets (and acts) into a row.
+__device__ __forceinline__ void fetch_substep(Lane& L, const Args& a, const BwdArgs& w, int e,
+                                              int j, float* mir, float* row) {
+  const int B = a.B, E = a.E;
+  for (int i = L.lane; i < 13 * B; i += 32)  // i = k * B + b: export row (j, k, b)
+    cp_async4(mir + i, w.sstate + ((size_t)j * 13 * B + i) * E + e);
+  for (int d = L.lane; d < a.n_qd; d += 32) {
+    const size_t g = ((size_t)j * a.n_qd + d) * E + e;
+    cp_async4(row + d, a.tgt + g);
+    if (a.act) cp_async4(row + a.n_qd + d, a.act + g);
+  }
+  cp_async_commit();
+}
+
+// Body lane's cotangent dn from (dq, dqd); its plane gradients start at 0.
+__device__ __forceinline__ void start_lane(Lane& L, const Args& a, const BwdArgs& w, int e,
+                                           float* dpl) {
+  const int b = L.lane, B = a.B;
+  if (b >= B) return;
+  for (int q = 0; q < 7; ++q) L.dn[q] = w.dq[((size_t)q * B + b) * a.E + e];
+  for (int q = 0; q < 6; ++q) L.dn[7 + q] = w.dqd[((size_t)q * B + b) * a.E + e];
+  for (int r = 0; r < N_PLANE_ROWS; ++r) dpl[r * B + b] = 0.0f;
+}
+
+// Entering substep j: fetch substep j-1, wait for j, zero dtgt/dact row j
+// (the joints' dofs are filled in below).
+__device__ __forceinline__ void enter_substep(Lane& L, const Args& a, const BwdArgs& w, int e,
+                                              int j, const WarpMem& m) {
+  if (j > 0) {
+    const int o = (j - 1) & 1;
+    fetch_substep(L, a, w, e, j - 1, m.mir + o * 13 * a.B, m.seq + o * 2 * a.n_qd);
+  }
+  cp_async_wait(j > 0 ? 1 : 0);
+  for (int d = L.lane; d < a.n_qd; d += 32) {
+    const size_t g = ((size_t)j * a.n_qd + d) * a.E + e;
+    w.dtgt[g] = 0.0f;
+    if (w.dact) w.dact[g] = 0.0f;
+  }
+}
+
+// Body lane's entering state into its registers; its totals start at its
+// residual forces (zero without them).
+__device__ __forceinline__ void load_lane(Lane& L, const Args& a, int e, int j,
+                                          const float* mir) {
+  const int b = L.lane, B = a.B;
+  if (b >= B) return;
+  L.s = mirror_get(mir, b, B);
+  L.ft = {0.0f, 0.0f, 0.0f};
+  L.ff = {0.0f, 0.0f, 0.0f};
+  if (a.res) {
+    const float* r = a.res + ((size_t)j * 6 * B + b) * a.E + e;
+    const size_t rs = (size_t)B * a.E;
+    L.ft = {r[0], r[rs], r[2 * rs]};
+    L.ff = {r[3 * rs], r[4 * rs], r[5 * rs]};
+  }
+}
+
+// Body lane's integration, reversed: L.dS starts at its share, dF goes to
+// the warp's [k][b] rows (and dres).
+__device__ __forceinline__ void integrate_adj_lane(Lane& L, const Args& a, const BwdArgs& w,
+                                                   const Consts& k, const WarpMem& m, int e,
+                                                   int j) {
+  const int b = L.lane, B = a.B;
+  if (b >= B) return;
+  float I[9], Ii[9], dF[6];
+  const float inv_m = body_inertia(m.pl, b, B, I, Ii);
+  for (int q = 0; q < 13; ++q) L.dS[q] = 0.0f;
+  integrate_adj(a, L.s, L.ft, L.ff, ld3(k.bf + b * BF_STRIDE + 14), inv_m, I, Ii, L.dn, L.dS,
+                dF, m.dpl + b, B);
+  for (int q = 0; q < 6; ++q) m.dF[q * B + b] = dF[q];
+  if (w.dres)
+    for (int q = 0; q < 6; ++q) w.dres[(((size_t)j * 6 + q) * B + b) * a.E + e] = dF[q];
+}
+
+// The joint of body lane (child b, parent p), reversed: dF of b and p ->
+// the child's d(state) share into slot rows 0-12 [k][b], the parent's into
+// rows 13-25; dtgt/dact of its dofs; body b's gains rows.
+__device__ __forceinline__ void joint_adj_lane(Lane& L, const Args& a, const BwdArgs& w,
+                                               const Consts& k, const WarpMem& m,
+                                               const float* mir, const float* row, int e,
+                                               int j) {
+  const int b = L.lane, B = a.B;
+  if (b >= B) return;
+  const int* bi = k.bi + b * BODY_I;
+  const float* bf = k.bf + b * BF_STRIDE;
   const int jt = bi[1];
-  if (jt != JOINT_FIXED && jt != JOINT_REVOLUTE && jt != JOINT_COMPOUND) return;
+  if (!has_joint(jt)) return;
   const int p = bi[0];
   const bool hp = p >= 0;
-  const size_t srow = (size_t)s * a.n_qd;
   const float ke_a = a.attach_ke, kd_a = a.attach_kd;
+  const WarpDrive d{m.pl, bi, row, a.act ? row + a.n_qd : nullptr, b, B};
+  const size_t srow = (size_t)j * a.n_qd * a.E + e;
+  const DofOut o{w.dtgt + srow, w.dact ? w.dact + srow : nullptr, a.E};
+  float* dplb = m.dpl + b;  // body b's plane gradient rows, stride B
+  const float* dF = m.dF;
 
-  // forward recompute (substep.cuh)
-  Q4 q_c = getq(st, b);
-  V3 t_c = gett(st, b), w_c = getw(st, b), v_c = getv(st, b);
+  // forward recompute (substep.cuh:joint_wrench)
+  Q4 q_c = L.s.q;
+  V3 t_c = L.s.t, w_c = L.s.w, v_c = L.s.v;
   Q4 xpq = ld4(bf + 6);
   V3 xpt = ld3(bf + 3), rpl = ld3(bf + 17), comb = ld3(bf + 14);
   Q4 pq = {0.f, 0.f, 0.f, 1.f};
   Q4 X_wp_q = xpq;
   V3 X_wp_t = xpt, w_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f}, r_p = {0.f, 0.f, 0.f};
   if (hp) {
-    pq = getq(st, p);
+    const Body pb = mirror_get(mir, p, B);
+    pq = pb.q;
     X_wp_q = qmul(pq, xpq);
-    X_wp_t = add(gett(st, p), qrot(pq, xpt));
-    w_p = getw(st, p);
-    v_p = getv(st, p);
+    X_wp_t = add(pb.t, qrot(pq, xpt));
+    w_p = pb.w;
+    v_p = pb.v;
     r_p = qrot(pq, rpl);
   }
   V3 r_c = scale(qrot(q_c, comb), -1.0f);
@@ -332,14 +435,14 @@ __device__ void joint_adj(const Args& a, const BwdArgs& w, const EnvState& st, i
   V3 fj = jt == JOINT_COMPOUND ? clamp3(attach, 10000.0f) : attach;
 
   // scatter: child -= (t + r_c x f, f); parent += (t + r_p x f, f)
-  V3 g_childt = {-dF[b][0], -dF[b][1], -dF[b][2]};
-  V3 g_fj = {-dF[b][3], -dF[b][4], -dF[b][5]};
+  V3 g_childt = {-dF[b], -dF[B + b], -dF[2 * B + b]};
+  V3 g_fj = {-dF[3 * B + b], -dF[4 * B + b], -dF[5 * B + b]};
   V3 g_tt = g_childt;
   V3 g_rc = {0.f, 0.f, 0.f}, g_rp = {0.f, 0.f, 0.f};
   cross_adj(r_c, fj, g_childt, g_rc, g_fj);
   if (hp) {
-    V3 g_pt = {dF[p][0], dF[p][1], dF[p][2]};
-    g_fj.x += dF[p][3]; g_fj.y += dF[p][4]; g_fj.z += dF[p][5];
+    V3 g_pt = {dF[p], dF[B + p], dF[2 * B + p]};
+    g_fj.x += dF[3 * B + p]; g_fj.y += dF[4 * B + p]; g_fj.z += dF[5 * B + p];
     acc(g_tt, g_pt);
     cross_adj(r_p, fj, g_pt, g_rp, g_fj);
   }
@@ -347,7 +450,6 @@ __device__ void joint_adj(const Args& a, const BwdArgs& w, const EnvState& st, i
   V3 g_attach = {0.f, 0.f, 0.f}, g_werr = {0.f, 0.f, 0.f}, dv = {0.f, 0.f, 0.f};
   Q4 g_rerr = {0.f, 0.f, 0.f, 0.f}, g_Xwpq = {0.f, 0.f, 0.f, 0.f}, g_qc = {0.f, 0.f, 0.f, 0.f};
   Q4 dq_unused = {0.f, 0.f, 0.f, 0.f};
-  float* dplb = dpl[b];
 
   if (jt == JOINT_FIXED) {
     V3 rv = {r_err.x, r_err.y, r_err.z};
@@ -385,7 +487,7 @@ __device__ void joint_adj(const Args& a, const BwdArgs& w, const EnvState& st, i
     float s_tw = r_err.x * axis.x + r_err.y * axis.y + r_err.z * axis.z;
     float q_ang = 2.0f * katan2(s_tw, r_err.w);
     float qd_ang = dot(w_err, axis_p);
-    float fmag = joint_force(a, bf, bi, 0, b, e, srow, q_ang, qd_ang);
+    float fmag = joint_force(bf, 0, d.ke(0), d.kd(0), d.tg(0), d.ac(0), q_ang, qd_ang);
     // tt = axis_p fmag + swing ke_a + (w_err - qd_ang axis_p) kd_a kAngDamp
     acc(g_attach, g_fj);
     const float c = kd_a * kAngDamp;
@@ -396,7 +498,7 @@ __device__ void joint_adj(const Args& a, const BwdArgs& w, const EnvState& st, i
     V3 g_axcw = {0.f, 0.f, 0.f};
     cross_adj(axis_p, axis_cw, scale(g_tt, ke_a), g_axp, g_axcw);
     float g_q = 0.0f;
-    joint_force_adj(a, w, bf, bi, 0, b, e, srow, q_ang, qd_ang, g_fmag, g_q, g_qd, dplb);
+    joint_force_adj(bf, d, 0, q_ang, qd_ang, g_fmag, g_q, g_qd, dplb, B, o);
     acc(g_werr, scale(axis_p, g_qd));
     acc(g_axp, scale(w_err, g_qd));
     float g_s = 0.0f, g_w = 0.0f;
@@ -433,11 +535,11 @@ __device__ void joint_adj(const Args& a, const BwdArgs& w, const EnvState& st, i
     V3 axw[3];
     float qdk[3], fm[3];
     V3 tc = {0.0f, 0.0f, 0.0f};
-    for (int k = 0; k < 3; ++k) {
-      axw[k] = qrot(q_w, ax[k]);
-      qdk[k] = dot(axw[k], w_err);
-      fm[k] = joint_force(a, bf, bi, k, b, e, srow, ang[k], qdk[k]);
-      tc = add(tc, scale(axw[k], fm[k]));
+    for (int kk = 0; kk < 3; ++kk) {
+      axw[kk] = qrot(q_w, ax[kk]);
+      qdk[kk] = dot(axw[kk], w_err);
+      fm[kk] = joint_force(bf, kk, d.ke(kk), d.kd(kk), d.tg(kk), d.ac(kk), ang[kk], qdk[kk]);
+      tc = add(tc, scale(axw[kk], fm[kk]));
     }
     // tt = clamp3(tc), fj = clamp3(attach)
     V3 g_tc = gate3(g_tt, tc, 10000.0f);
@@ -445,15 +547,15 @@ __device__ void joint_adj(const Args& a, const BwdArgs& w, const EnvState& st, i
     Q4 g_qw = {0.f, 0.f, 0.f, 0.f};
     V3 g_ax[3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
     float g_ang[3] = {0.0f, 0.0f, 0.0f};
-    for (int k = 0; k < 3; ++k) {
-      V3 g_axw = scale(g_tc, fm[k]);
-      float g_fm = dot(g_tc, axw[k]);
+    for (int kk = 0; kk < 3; ++kk) {
+      V3 g_axw = scale(g_tc, fm[kk]);
+      float g_fm = dot(g_tc, axw[kk]);
       float g_qk = 0.0f, g_qdk = 0.0f;
-      joint_force_adj(a, w, bf, bi, k, b, e, srow, ang[k], qdk[k], g_fm, g_qk, g_qdk, dplb);
-      g_ang[k] += g_qk;
+      joint_force_adj(bf, d, kk, ang[kk], qdk[kk], g_fm, g_qk, g_qdk, dplb, B, o);
+      g_ang[kk] += g_qk;
       acc(g_axw, scale(w_err, g_qdk));
-      acc(g_werr, scale(axw[k], g_qdk));
-      qrot_adj(q_w, ax[k], g_axw, g_qw, g_ax[k]);
+      acc(g_werr, scale(axw[kk], g_qdk));
+      qrot_adj(q_w, ax[kk], g_axw, g_qw, g_ax[kk]);
     }
     qmul_adj(X_wp_q, qoff, g_qw, g_Xwpq, dq_unused);
     Q4 g_q10 = {0.f, 0.f, 0.f, 0.f}, g_q1 = {0.f, 0.f, 0.f, 0.f}, g_q0 = {0.f, 0.f, 0.f, 0.f};
@@ -489,31 +591,51 @@ __device__ void joint_adj(const Args& a, const BwdArgs& w, const EnvState& st, i
   qmul_adj(qinv(X_wp_q), q_c, g_rerr, g_qiX, g_qc);
   g_Xwpq.x -= g_qiX.x; g_Xwpq.y -= g_qiX.y; g_Xwpq.z -= g_qiX.z; g_Xwpq.w += g_qiX.w;
   qrot_adj(q_c, comb, neg(g_rc), g_qc, dv);
-  add_state(dS[b], g_xerr, g_qc, g_werr, g_verr);
+  put_state(m.jw + b, B, g_xerr, g_qc, g_werr, g_verr);
   if (hp) {
     Q4 g_pq = {0.f, 0.f, 0.f, 0.f};
     V3 g_Xwpt = neg(g_xerr);
     qmul_adj(pq, xpq, g_Xwpq, g_pq, dq_unused);
     qrot_adj(pq, xpt, g_Xwpt, g_pq, dv);
     qrot_adj(pq, rpl, g_rp, g_pq, dv);
-    add_state(dS[p], g_Xwpt, g_pq, neg(g_werr), neg(g_verr));
+    put_state(m.jw + 13 * B + b, B, g_Xwpt, g_pq, neg(g_werr), neg(g_verr));
   }
 }
 
-// Contact c: dF of its body -> dS of its body. Inactive contacts carry no
-// force and no cotangent.
-__device__ void contact_adj(const Args& a, const EnvState& st, int c,
-                            const float (*dF)[6], float (*dS)[13]) {
-  const int b = a.cbody[c];
-  const float* cf = a.cf + (size_t)c * CONTACT_F;
-  const float* bf = a.body_f + (size_t)b * BODY_F;
-  Q4 qb = getq(st, b);
-  V3 tb = gett(st, b), wb = getw(st, b), vb = getv(st, b);
-  V3 comb = ld3(bf + 14), pt = ld3(cf);
+// Body lane's d(state) shares of the joints that touch it, joints in body
+// order.
+__device__ __forceinline__ void joint_adj_sum(Lane& L, const Args& a, const Consts& k,
+                                              const float* jw) {
+  const int b = L.lane, B = a.B;
+  if (b >= B) return;
+  for (int i = k.adj_off[b]; i < k.adj_off[b + 1]; ++i) {
+    const float* s = jw + (k.adj[i] & 1) * 13 * B + (k.adj[i] >> 1);
+    for (int q = 0; q < 13; ++q) L.dS[q] += s[q * B];
+  }
+}
+
+// Contact c0 + lane, reversed: dF of its body -> its body's d(state) share
+// into slot rows 0-12 [k][lane]; row 13 flags it active. Inactive contacts
+// carry no force and no cotangent.
+__device__ __forceinline__ void contact_adj_slot(Lane& L, const Args& a, const Consts& k,
+                                                 const WarpMem& m, const float* mir, int c0) {
+  const int c = c0 + L.lane;
+  if (c >= a.C) return;
+  float* slot = m.cw + L.lane;
+  const int B = a.B;
+  const int b = k.cbody[c];
+  const float* cf = k.cf + (size_t)c * k.cfs;
+  const Body bd = mirror_get(mir, b, B);
+  Q4 qb = bd.q;
+  V3 tb = bd.t, wb = bd.w, vb = bd.v;
+  V3 comb = ld3(k.bf + b * BF_STRIDE + 14), pt = ld3(cf);
   V3 com_w = add(tb, qrot(qb, comb));
   V3 cp = add(qrot(qb, pt), tb);
   cp.y = cp.y - cf[3];
-  if (!(cp.y < 0.0f)) return;
+  if (!(cp.y < 0.0f)) {
+    slot[13 * CHUNK] = 0.0f;
+    return;
+  }
   V3 r = sub(cp, com_w);
   V3 dpdt = add(vb, cross(wb, r));
   float vn = dpdt.y;
@@ -529,8 +651,9 @@ __device__ void contact_adj(const Args& a, const EnvState& st, int c,
   V3 f = clamp3(fraw, 500.0f);
 
   // body forces -= (r x f, f)
-  V3 g_t = {-dF[b][0], -dF[b][1], -dF[b][2]};
-  V3 g_f = {-dF[b][3], -dF[b][4], -dF[b][5]};
+  const float* dF = m.dF;
+  V3 g_t = {-dF[b], -dF[B + b], -dF[2 * B + b]};
+  V3 g_f = {-dF[3 * B + b], -dF[4 * B + b], -dF[5 * B + b]};
   V3 g_r = {0.f, 0.f, 0.f};
   cross_adj(r, f, g_t, g_r, g_f);
   V3 g_ftan = gate3(g_f, fraw, 500.0f);
@@ -556,7 +679,44 @@ __device__ void contact_adj(const Args& a, const EnvState& st, int c,
   V3 dv = {0.f, 0.f, 0.f};
   qrot_adj(qb, pt, g_cp, g_qb, dv);
   qrot_adj(qb, comb, g_comw, g_qb, dv);
-  add_state(dS[b], add(g_cp, g_comw), g_qb, g_wb, g_dpdt);
+  put_state(slot, CHUNK, add(g_cp, g_comw), g_qb, g_wb, g_dpdt);
+  slot[13 * CHUNK] = 1.0f;
+}
+
+// Body lane's d(state) shares of its active contacts in the chunk, in
+// contact order.
+__device__ __forceinline__ void contact_adj_sum(Lane& L, const Args& a, const Consts& k,
+                                                const float* cw, int c0) {
+  const int b = L.lane;
+  if (b >= a.B) return;
+  const int hi = imin(k.c_off[b + 1], c0 + CHUNK);
+  for (int c = imax(k.c_off[b], c0); c < hi; ++c) {
+    const float* s = cw + (c - c0);
+    if (s[13 * CHUNK] == 0.0f) continue;
+    for (int q = 0; q < 13; ++q) L.dS[q] += s[q * CHUNK];
+  }
+}
+
+__device__ __forceinline__ void next_substep(Lane& L) {
+  for (int q = 0; q < 13; ++q) L.dn[q] = L.dS[q];
+}
+
+// Body lane's d(state0) and plane gradients out.
+__device__ __forceinline__ void finish_lane(const Lane& L, const Args& a, const BwdArgs& w,
+                                            int e, const float* dpl) {
+  const int b = L.lane, B = a.B;
+  if (b >= B) return;
+  for (int q = 0; q < 7; ++q) w.dbq0[((size_t)q * B + b) * a.E + e] = L.dn[q];
+  for (int q = 0; q < 6; ++q) w.dbqd0[((size_t)q * B + b) * a.E + e] = L.dn[7 + q];
+  for (int r = 0; r < N_PLANE_ROWS; ++r)
+    w.dplanes[((size_t)r * B + b) * a.E + e] = dpl[r * B + b];
+}
+
+// Lane's partial sum of a row of E floats: envs lane, lane + 32, ...
+__device__ __forceinline__ void row_partial(Lane& L, const float* x, int E) {
+  float s = 0.0f;
+  for (int e = L.lane; e < E; e += 32) s += x[e];
+  L.acc = s;
 }
 
 // ---- kernels -------------------------------------------------------------
@@ -587,60 +747,49 @@ __global__ void soa_interval_fwd_kernel(Args a, float* __restrict__ sstate, int 
   }
 }
 
-__global__ void soa_interval_bwd_kernel(Args a, BwdArgs w) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= a.E) return;
-  const int B = a.B, E = a.E;
-  EnvState st;
-  float dn[MAX_BODIES][13], dS[MAX_BODIES][13], dF[MAX_BODIES][6];
-  float dpl[MAX_BODIES][N_PLANE_ROWS];
-  for (int b = 0; b < B; ++b) {
-    for (int k = 0; k < 7; ++k) dn[b][k] = w.dq[((size_t)k * B + b) * E + e];
-    for (int k = 0; k < 6; ++k) dn[b][7 + k] = w.dqd[((size_t)k * B + b) * E + e];
-    for (int r = 0; r < N_PLANE_ROWS; ++r) dpl[b][r] = 0.0f;
-  }
-  for (int j = w.S - 1; j >= 0; --j) {
-    for (int b = 0; b < B; ++b) {
-      for (int k = 0; k < 7; ++k)
-        st.q[b][k] = w.sstate[(((size_t)j * 13 + k) * B + b) * E + e];
-      for (int k = 0; k < 6; ++k)
-        st.qd[b][k] = w.sstate[(((size_t)j * 13 + 7 + k) * B + b) * E + e];
-      for (int k = 0; k < 13; ++k) dS[b][k] = 0.0f;
+
+__global__ void __launch_bounds__(32 * MAX_ENVS_PER_CTA, 2)
+soa_interval_bwd_kernel(Args a, BwdArgs w, Lists li, int epc, Plan p) {
+  DYN_SHARED(sm);
+  const Consts k = stage_consts(a, li, sm, p);
+  __syncthreads();
+  const int warp = (int)(threadIdx.x >> 5);
+  const int e = (int)blockIdx.x * epc + warp;
+  if (e >= a.E) return;  // the last CTA's missing envs
+  const WarpMem m = warp_mem(sm, p, warp);
+  const int MB = 13 * a.B, RW = 2 * a.n_qd, S = w.S;
+  WARP_LANES;
+  PHASE(load_planes(L, a, e, m.pl); start_lane(L, a, w, e, m.dpl);
+        fetch_substep(L, a, w, e, S - 1, m.mir + ((S - 1) & 1) * MB, m.seq + ((S - 1) & 1) * RW));
+  for (int j = S - 1; j >= 0; --j) {
+    const float* mir = m.mir + (j & 1) * MB;
+    const float* row = m.seq + (j & 1) * RW;
+    PHASE(enter_substep(L, a, w, e, j, m));
+    PHASE(load_lane(L, a, e, j, mir));
+    warp_forces(LANES_ARG, a, k, m, mir, row);  // this substep's force totals
+    PHASE(integrate_adj_lane(L, a, w, k, m, e, j));
+    PHASE(joint_adj_lane(L, a, w, k, m, mir, row, e, j));
+    PHASE(joint_adj_sum(L, a, k, m.jw));
+    for (int c0 = 0; c0 < a.C; c0 += CHUNK) {
+      PHASE(contact_adj_slot(L, a, k, m, mir, c0));
+      PHASE(contact_adj_sum(L, a, k, m.cw, c0));
     }
-    substep(a, st, e, j, false, 0, false);  // this substep's force totals
-    for (int b = 0; b < B; ++b) integrate_adj(a, st, b, e, dn[b], dS[b], dF[b], dpl[b]);
-    if (w.dres) {
-      for (int b = 0; b < B; ++b)
-        for (int k = 0; k < 6; ++k)
-          w.dres[(((size_t)j * 6 + k) * B + b) * E + e] = dF[b][k];
-    }
-    const size_t srow = (size_t)j * a.n_qd;
-    for (int d = 0; d < a.n_qd; ++d) {
-      w.dtgt[(srow + d) * E + e] = 0.0f;
-      if (w.dact) w.dact[(srow + d) * E + e] = 0.0f;
-    }
-    for (int b = 0; b < B; ++b) joint_adj(a, w, st, b, e, j, dF, dS, dpl);
-    for (int c = 0; c < a.C; ++c) contact_adj(a, st, c, dF, dS);
-    for (int b = 0; b < B; ++b)
-      for (int k = 0; k < 13; ++k) dn[b][k] = dS[b][k];
+    PHASE(next_substep(L));
   }
-  for (int b = 0; b < B; ++b) {
-    for (int k = 0; k < 7; ++k) w.dbq0[((size_t)k * B + b) * E + e] = dn[b][k];
-    for (int k = 0; k < 6; ++k) w.dbqd0[((size_t)k * B + b) * E + e] = dn[b][7 + k];
-    for (int r = 0; r < N_PLANE_ROWS; ++r)
-      w.dplanes[((size_t)r * B + b) * E + e] = dpl[b][r];
-  }
+  PHASE(finish_lane(L, a, w, e, m.dpl));
 }
 
-// out[r] = sum over e of in[r][e], envs in ascending order
+// out[r] = sum over e of in[r][e], one warp per row: lane l sums envs l,
+// l + 32, ... in ascending order, then a fixed butterfly combines the 32
+// partials (every lane ends with the same sum).
 __global__ void soa_interval_reduce_kernel(const float* __restrict__ in,
                                            float* __restrict__ out, int rows, int E) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = (int)(blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5));
   if (r >= rows) return;
-  const float* p = in + (size_t)r * E;
-  float s = 0.0f;
-  for (int e = 0; e < E; ++e) s += p[e];
-  out[r] = s;
+  WARP_LANES;
+  PHASE(row_partial(L, in + (size_t)r * E, E));
+  for (int off = 16; off > 0; off >>= 1) WARP_XOR_ADD(acc, off);
+  PHASE(if (L.lane == 0) out[r] = L.acc);
 }
 
 Args make_args(const float* tgt, const float* act, const float* res, const int* body_i,
@@ -662,9 +811,8 @@ Args make_args(const float* tgt, const float* act, const float* res, const int* 
   return a;
 }
 
-bool bad_dims(int E, int B, int C, int S, int threads) {
-  return B < 1 || B > MAX_BODIES || E < 1 || S < 1 || C < 0 || threads < 1 ||
-         threads > 1024;
+bool bad_dims(int E, int B, int C, int S) {
+  return B < 1 || B > MAX_BODIES || E < 1 || S < 1 || C < 0;
 }
 
 }  // namespace
@@ -680,41 +828,53 @@ extern "C" int soa_interval_fwd_launch(
     float* out_q, float* out_qd, float* sstate, int E, int B, int n_qd, int C, int S,
     float dt, float ang_decay, float gx, float gy, float gz, float attach_ke,
     float attach_kd, int threads, void* stream) {
-  if (bad_dims(E, B, C, S, threads)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(E, B, C, S) || threads < 1 || threads > 1024) return (int)cudaErrorInvalidValue;
   Args a = make_args(tgt, act, res, body_i, body_f, cbody, cf, gains, gains_pe, inv_m,
                      inv_m_pe, inertia, inertia_pe, inv_inertia, inv_inertia_pe, E, B,
                      n_qd, C, dt, ang_decay, gx, gy, gz, attach_ke, attach_kd);
   a.bq0 = bq0; a.bqd0 = bqd0; a.out_q = out_q; a.out_qd = out_qd;
   const int blocks = (E + threads - 1) / threads;
-  soa_interval_fwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a, sstate, S);
+  LAUNCH_THREADS(soa_interval_fwd_kernel, blocks, threads, stream)(a, sstate, S);
   return (int)cudaGetLastError();
 }
 
 extern "C" int soa_interval_bwd_launch(
     const float* sstate, const float* tgt, const float* act, const float* res,
     const int* body_i, const float* body_f, const int* cbody, const float* cf,
+    const int* adj_off, const int* adj, const int* c_off, int n_adj,
     const float* gains, int gains_pe, const float* inv_m, int inv_m_pe,
     const float* inertia, int inertia_pe, const float* inv_inertia, int inv_inertia_pe,
     const float* dq, const float* dqd, float* dbq0, float* dbqd0, float* dtgt,
     float* dact, float* dres, float* dplanes, int E, int B, int n_qd, int C, int S,
     float dt, float ang_decay, float gx, float gy, float gz, float attach_ke,
-    float attach_kd, int threads, void* stream) {
-  if (bad_dims(E, B, C, S, threads)) return (int)cudaErrorInvalidValue;
+    float attach_kd, int envs_per_cta, void* stream) {
+  if (bad_dims(E, B, C, S) || n_adj < 0 || envs_per_cta < 1 ||
+      envs_per_cta > MAX_ENVS_PER_CTA)
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(tgt, act, res, body_i, body_f, cbody, cf, gains, gains_pe, inv_m,
                      inv_m_pe, inertia, inertia_pe, inv_inertia, inv_inertia_pe, E, B,
                      n_qd, C, dt, ang_decay, gx, gy, gz, attach_ke, attach_kd);
   BwdArgs w;
   w.sstate = sstate; w.dq = dq; w.dqd = dqd; w.dbq0 = dbq0; w.dbqd0 = dbqd0;
   w.dtgt = dtgt; w.dact = dact; w.dres = dres; w.dplanes = dplanes; w.S = S;
-  const int blocks = (E + threads - 1) / threads;
-  soa_interval_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a, w);
+  const Lists li = {adj_off, adj, c_off, n_adj};
+  const Plan p = make_plan(B, C, n_qd, n_adj, true);
+  const int bytes = 4 * (p.cta + envs_per_cta * p.warp);
+  static bool smem_cap_set[MAX_DEVICES];
+  const int st = allow_dyn_smem(soa_interval_bwd_kernel, smem_cap_set);
+  if (st != 0) return st;
+  const int blocks = (E + envs_per_cta - 1) / envs_per_cta;
+  LAUNCH_WARPS(soa_interval_bwd_kernel, blocks, envs_per_cta, bytes, stream)(a, w, li,
+                                                                             envs_per_cta, p);
   return (int)cudaGetLastError();
 }
 
+// rows warps, warps_per_cta of them per CTA
 extern "C" int soa_interval_reduce_launch(const float* in, float* out, int rows, int E,
-                                          int threads, void* stream) {
-  if (rows < 1 || E < 1 || threads < 1 || threads > 1024) return (int)cudaErrorInvalidValue;
-  const int blocks = (rows + threads - 1) / threads;
-  soa_interval_reduce_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(in, out, rows, E);
+                                          int warps_per_cta, void* stream) {
+  if (rows < 1 || E < 1 || warps_per_cta < 1 || warps_per_cta > 32)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (rows + warps_per_cta - 1) / warps_per_cta;
+  LAUNCH_WARPS(soa_interval_reduce_kernel, blocks, warps_per_cta, 0, stream)(in, out, rows, E);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,15 @@
-// The substep's device code, shared by the serving window
-// (soa_window.cu) and the training interval kernels (soa_interval.cu):
+// The substep's device code, shared by every kernel of the port:
 // vector/quaternion helpers, the polynomial atan2/asin, the packed constant
-// layout, the PD + limit law and one substep (penalty contacts, the
-// FIXED/REVOLUTE/COMPOUND joint law with attachment springs, symplectic
-// Euler; ppr_diffphys_tpu/sim/pallas_soa.py:201-227, :736-944).
+// layout, and the substep's units (ppr_diffphys_tpu/sim/pallas_soa.py:
+// 201-227, :736-944): one contact's penalty wrench, one joint's
+// FIXED/REVOLUTE/COMPOUND law with attachment springs and its PD + limit
+// law, one body's symplectic Euler step.
 //
-// One thread runs one env; every per-body quantity lives in that thread's
-// EnvState. Env is the innermost dimension of every global array.
+// `substep()` runs them one thread per env (the serving window K1,
+// soa_window.cu, and the interval forward K2, soa_interval.cu), with every
+// per-body quantity in that thread's EnvState and env innermost in every
+// global array. substep_warp.cuh runs the same units one warp per env (K3,
+// K4).
 
 #pragma once
 
@@ -119,41 +122,222 @@ struct EnvState {
   float grf[MAX_BODIES][6];  // post-contact snapshot (observable substeps)
 };
 
-__device__ __forceinline__ Q4 getq(const EnvState& s, int b) {
-  return {s.q[b][3], s.q[b][4], s.q[b][5], s.q[b][6]};
-}
-__device__ __forceinline__ V3 gett(const EnvState& s, int b) {
-  return {s.q[b][0], s.q[b][1], s.q[b][2]};
-}
-__device__ __forceinline__ V3 getw(const EnvState& s, int b) {
-  return {s.qd[b][0], s.qd[b][1], s.qd[b][2]};
-}
-__device__ __forceinline__ V3 getv(const EnvState& s, int b) {
-  return {s.qd[b][3], s.qd[b][4], s.qd[b][5]};
+// One body's state: orientation, origin, angular and linear velocity.
+struct Body {
+  Q4 q;
+  V3 t, w, v;
+};
+
+__device__ __forceinline__ Body get_body(const EnvState& s, int b) {
+  return {{s.q[b][3], s.q[b][4], s.q[b][5], s.q[b][6]},
+          {s.q[b][0], s.q[b][1], s.q[b][2]},
+          {s.qd[b][0], s.qd[b][1], s.qd[b][2]},
+          {s.qd[b][3], s.qd[b][4], s.qd[b][5]}};
 }
 __device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
 __device__ __forceinline__ Q4 ld4(const float* p) { return {p[0], p[1], p[2], p[3]}; }
 
-// PD + limit law of one dof (pallas_soa.py:795-806).
-__device__ __forceinline__ float joint_force(const Args& a, const float* bf,
-                                             const int* bi, int k, int b, int e,
-                                             size_t srow, float q, float qd) {
+// ---- the substep's units ----------------------------------------------------
+// One contact, one joint, one body's integration: the thread-per-env loop
+// below and the warp-per-env substep (substep_warp.cuh) both call them, so
+// both do the same arithmetic.
+
+// PD + limit law of one dof (pallas_soa.py:795-806), with the dof's gains
+// ke/kd, target tg and activation ac.
+__device__ __forceinline__ float joint_force(const float* bf, int k, float ke, float kd,
+                                             float tg, float ac, float q, float qd) {
   float lo = bf[20 + k], hi = bf[23 + k], lke = bf[26 + k], lkd = bf[29 + k];
-  float ke = plane(a.gains, a.gains_pe, k, b, e, a.B, a.E);
-  float kd = plane(a.gains, a.gains_pe, 3 + k, b, e, a.B, a.E);
-  int dof = bi[2 + k];
-  float tg = a.tgt[(srow + dof) * a.E + e];
-  float ac = a.act ? a.act[(srow + dof) * a.E + e] : 0.0f;
   float limit_f = 0.0f;
   if (q < lo) limit_f = lke * (lo - q) - lkd * fminf(qd, 0.0f);
   if (q > hi) limit_f = lke * (hi - q) - lkd * fmaxf(qd, 0.0f);
   return ke * (q - tg) + kd * qd + ac - limit_f;
 }
 
+// Penalty ground contact (pallas_soa.py:201-227) of a point (cf) on a body
+// with state bd and centre of mass com: its body's torque and force totals
+// take -= t and -= f (the sign of warp's atomic_sub).
+__device__ __forceinline__ void contact_wrench(const Body& bd, V3 com, const float* cf, V3& t,
+                                               V3& f) {
+  V3 com_w = add(bd.t, qrot(bd.q, com));
+  V3 cp = add(qrot(bd.q, ld3(cf)), bd.t);
+  cp.y = cp.y - cf[3];
+  V3 r = sub(cp, com_w);
+  V3 dpdt = add(bd.v, cross(bd.w, r));
+  float cy = cp.y;
+  float active = cy < 0.0f ? 1.0f : 0.0f;
+  float vn = dpdt.y;
+  V3 vt = {dpdt.x, dpdt.y - vn, dpdt.z};
+  float fn = cy * cf[4];
+  float fd = fminf(vn, 0.0f) * cf[5];
+  float vt_len = sqrtf(dot(vt, vt) + 1e-12f);
+  float ft_mag = fminf(cf[6] * vt_len, -cf[7] * (fn + fd));
+  V3 ftan = scale(vt, ft_mag / vt_len);
+  f = {ftan.x, (fn + fd) + ftan.y, ftan.z};
+  f = {clampf(f.x * active, -500.0f, 500.0f), clampf(f.y * active, -500.0f, 500.0f),
+       clampf(f.z * active, -500.0f, 500.0f)};
+  t = cross(r, f);
+}
+
+// The joint law (pallas_soa.py:760-903) of a body's joint of type jt, with
+// the child's state c, the parent's state pb (read only when hp) and the
+// body's packed constants bf. `d` gives dof k's gains, target and
+// activation: d.ke(k), d.kd(k), d.tg(k), d.ac(k). The child's totals take
+// -= (child_t, fj), the parent's += (parent_t, fj) (parent_t set when hp).
+template <class Drive>
+__device__ __forceinline__ void joint_wrench(const Args& a, int jt, bool hp, const Body& c,
+                                             const Body& pb, const float* bf, const Drive& d,
+                                             V3& child_t, V3& parent_t, V3& fj) {
+  Q4 q_c = c.q;
+  V3 t_c = c.t, w_c = c.w, v_c = c.v;
+  Q4 xpq = ld4(bf + 6);
+  V3 xpt = ld3(bf + 3);
+  Q4 X_wp_q = xpq;
+  V3 X_wp_t = xpt, w_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f}, r_p = {0.f, 0.f, 0.f};
+  if (hp) {
+    Q4 pq = pb.q;
+    X_wp_q = qmul(pq, xpq);
+    X_wp_t = add(pb.t, qrot(pq, xpt));
+    w_p = pb.w;
+    v_p = pb.v;
+    r_p = qrot(pq, ld3(bf + 17));
+  }
+  V3 r_c = scale(qrot(q_c, ld3(bf + 14)), -1.0f);
+  V3 x_err = sub(t_c, X_wp_t);
+  Q4 r_err = qmul(qinv(X_wp_q), q_c);
+  V3 v_err = sub(v_c, v_p);
+  V3 w_err = sub(w_c, w_p);
+  const float ke_a = a.attach_ke, kd_a = a.attach_kd;
+
+  V3 tt;
+  V3 attach = add(scale(x_err, ke_a), scale(v_err, kd_a));
+  if (jt == JOINT_FIXED) {
+    // Taylor-safe axis-angle of r_err
+    V3 rv = {r_err.x, r_err.y, r_err.z};
+    float sq = dot(rv, rv);
+    bool is_zero = sq < 1e-12f;
+    float norms = is_zero ? 0.0f : sqrtf(sq);
+    float half = katan2(norms, r_err.w);
+    float ang = 2.0f * half;
+    bool small = fabsf(ang) < 1e-6f;
+    float sho = small ? 0.5f - ang * ang / 48.0f : sinf(half) / ang;
+    V3 ang_err = {rv.x / sho, rv.y / sho, rv.z / sho};
+    V3 tf = qrot(X_wp_q, ang_err);
+    fj = attach;
+    tt = {tf.x * ke_a + w_err.x * kd_a * kAngDamp,
+          tf.y * ke_a + w_err.y * kd_a * kAngDamp,
+          tf.z * ke_a + w_err.z * kd_a * kAngDamp};
+  } else if (jt == JOINT_REVOLUTE) {
+    V3 axis = ld3(bf);
+    V3 axis_p = qrot(X_wp_q, axis);
+    V3 axis_cw = qrot(q_c, axis);
+    float s_tw = r_err.x * axis.x + r_err.y * axis.y + r_err.z * axis.z;
+    float q_ang = 2.0f * katan2(s_tw, r_err.w);
+    float qd_ang = dot(w_err, axis_p);
+    float fmag = joint_force(bf, 0, d.ke(0), d.kd(0), d.tg(0), d.ac(0), q_ang, qd_ang);
+    V3 swing = cross(axis_p, axis_cw);
+    fj = attach;
+    tt = {axis_p.x * fmag + swing.x * ke_a + (w_err.x - qd_ang * axis_p.x) * kd_a * kAngDamp,
+          axis_p.y * fmag + swing.y * ke_a + (w_err.y - qd_ang * axis_p.y) * kd_a * kAngDamp,
+          axis_p.z * fmag + swing.z * ke_a + (w_err.z - qd_ang * axis_p.z) * kd_a * kAngDamp};
+  } else {  // JOINT_COMPOUND: intrinsic-XYZ split
+    Q4 qoff = ld4(bf + 10);
+    Q4 q_pc = qmul(qmul(qinv(qoff), r_err), qoff);
+    float x = q_pc.x, y = q_pc.y, z = q_pc.z, w = q_pc.w;
+    float m12 = 2.0f * (y * z - w * x);
+    float m22 = 1.0f - 2.0f * (x * x + y * y);
+    float m02 = 2.0f * (x * z + w * y);
+    float m01 = 2.0f * (x * y - w * z);
+    float m00 = 1.0f - 2.0f * (y * y + z * z);
+    float ang[3];
+    ang[0] = katan2(-m12, m22);
+    ang[1] = kasin(clampf(m02, -kSinLimit, kSinLimit));
+    ang[2] = katan2(-m01, m00);
+    Q4 q0 = {sinf(0.5f * ang[0]), 0.0f, 0.0f, cosf(0.5f * ang[0])};
+    V3 ax[3];
+    ax[0] = {1.0f, 0.0f, 0.0f};
+    ax[1] = qrot(q0, {0.0f, 1.0f, 0.0f});
+    float sb = sinf(0.5f * ang[1]), cb = cosf(0.5f * ang[1]);
+    Q4 q1 = {ax[1].x * sb, ax[1].y * sb, ax[1].z * sb, cb};
+    ax[2] = qrot(qmul(q1, q0), {0.0f, 0.0f, 1.0f});
+    Q4 q_w = qmul(X_wp_q, qoff);
+    V3 tc = {0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < 3; ++k) {
+      V3 ax_w = qrot(q_w, ax[k]);
+      float fmag = joint_force(bf, k, d.ke(k), d.kd(k), d.tg(k), d.ac(k), ang[k],
+                               dot(ax_w, w_err));
+      tc = add(tc, scale(ax_w, fmag));
+    }
+    tt = clamp3(tc, 10000.0f);
+    fj = clamp3(attach, 10000.0f);
+  }
+
+  // scatter: child -= (t + r_c x f, f); parent += (t + r_p x f, f)
+  child_t = add(tt, cross(r_c, fj));
+  if (hp) parent_t = add(tt, cross(r_p, fj));
+}
+
+// Symplectic Euler (pallas_soa.py:909-944) of a body with state s (updated
+// in place), torque and force totals tq and fo, centre of mass comc and
+// parameters inv_m, I, Ii (row-major 3x3).
+__device__ __forceinline__ void integrate_body(const Args& a, Body& s, V3 tq, V3 fo, V3 comc,
+                                               float inv_m, const float* I, const float* Ii) {
+  Q4 q_c = s.q;
+  V3 t_c = s.t, w_c = s.w, v_c = s.v;
+  V3 x_com = add(t_c, qrot(q_c, comc));
+  V3 v1 = {v_c.x + (fo.x * inv_m + a.gx) * a.dt,
+           v_c.y + (fo.y * inv_m + a.gy) * a.dt,
+           v_c.z + (fo.z * inv_m + a.gz) * a.dt};
+  V3 x1 = add(x_com, scale(v1, a.dt));
+
+  V3 wb = qrot_inv(q_c, w_c);
+  V3 tb = qrot_inv(q_c, tq);
+  V3 Iw = {I[0] * wb.x + I[1] * wb.y + I[2] * wb.z,
+           I[3] * wb.x + I[4] * wb.y + I[5] * wb.z,
+           I[6] * wb.x + I[7] * wb.y + I[8] * wb.z};
+  tb = sub(tb, cross(wb, Iw));
+  V3 It = {Ii[0] * tb.x + Ii[1] * tb.y + Ii[2] * tb.z,
+           Ii[3] * tb.x + Ii[4] * tb.y + Ii[5] * tb.z,
+           Ii[6] * tb.x + Ii[7] * tb.y + Ii[8] * tb.z};
+  V3 w1 = qrot(q_c, add(wb, scale(It, a.dt)));
+  // dr = 0.5*dt*quat(w1,0)*r0 with the pre-damping w1
+  Q4 dq = qmul({w1.x, w1.y, w1.z, 0.0f}, q_c);
+  const float hdt = 0.5f * a.dt;
+  Q4 r1 = {q_c.x + hdt * dq.x, q_c.y + hdt * dq.y, q_c.z + hdt * dq.z,
+           q_c.w + hdt * dq.w};
+  float n2 = r1.x * r1.x + r1.y * r1.y + r1.z * r1.z + r1.w * r1.w;
+  float inv = 1.0f / sqrtf(fmaxf(n2, 1e-18f));
+  r1 = {r1.x * inv, r1.y * inv, r1.z * inv, r1.w * inv};
+  w1 = clamp3(scale(w1, a.ang_decay), 10.0f);
+  v1 = clamp3(v1, 10.0f);
+  s.t = sub(x1, qrot(r1, comc));
+  s.q = r1;
+  s.w = w1;
+  s.v = v1;
+}
+
+// ---- one thread per env ---------------------------------------------------
+
+// Env e's gains planes and row srow of its targets and activations.
+struct EnvDrive {
+  const Args& a;
+  const int* bi;
+  int b, e;
+  size_t srow;
+  __device__ __forceinline__ float ke(int k) const {
+    return plane(a.gains, a.gains_pe, k, b, e, a.B, a.E);
+  }
+  __device__ __forceinline__ float kd(int k) const {
+    return plane(a.gains, a.gains_pe, 3 + k, b, e, a.B, a.E);
+  }
+  __device__ __forceinline__ float tg(int k) const { return a.tgt[(srow + bi[2 + k]) * a.E + e]; }
+  __device__ __forceinline__ float ac(int k) const {
+    return a.act ? a.act[(srow + bi[2 + k]) * a.E + e] : 0.0f;
+  }
+};
+
 // One substep of env e using input row s. With `obs`, writes the grf/jaf
 // observables into frame row `frame`. With `integrate` false, only the
-// forces are evaluated into st.ft/st.ff (the final-row observables, and the
-// backward's recompute).
+// forces are evaluated into st.ft/st.ff (the final-row observables).
 __device__ void substep(const Args& a, EnvState& st, int e, int s, bool obs,
                         int frame, bool integrate) {
   const int B = a.B, E = a.E;
@@ -165,32 +349,12 @@ __device__ void substep(const Args& a, EnvState& st, int e, int s, bool obs,
     }
   }
 
-  // ---- penalty ground contacts (pallas_soa.py:201-227), summed per body
-  // in contact order with the sign of warp's atomic_sub
+  // ---- penalty ground contacts, summed per body in contact order
   for (int c = 0; c < a.C; ++c) {
     const int b = a.cbody[c];
-    const float* cf = a.cf + (size_t)c * CONTACT_F;
-    const float* bf = a.body_f + (size_t)b * BODY_F;
-    Q4 qb = getq(st, b);
-    V3 tb = gett(st, b), wb = getw(st, b), vb = getv(st, b);
-    V3 com_w = add(tb, qrot(qb, ld3(bf + 14)));
-    V3 cp = add(qrot(qb, ld3(cf)), tb);
-    cp.y = cp.y - cf[3];
-    V3 r = sub(cp, com_w);
-    V3 dpdt = add(vb, cross(wb, r));
-    float cy = cp.y;
-    float active = cy < 0.0f ? 1.0f : 0.0f;
-    float vn = dpdt.y;
-    V3 vt = {dpdt.x, dpdt.y - vn, dpdt.z};
-    float fn = cy * cf[4];
-    float fd = fminf(vn, 0.0f) * cf[5];
-    float vt_len = sqrtf(dot(vt, vt) + 1e-12f);
-    float ft_mag = fminf(cf[6] * vt_len, -cf[7] * (fn + fd));
-    V3 ftan = scale(vt, ft_mag / vt_len);
-    V3 f = {ftan.x, (fn + fd) + ftan.y, ftan.z};
-    f = {clampf(f.x * active, -500.0f, 500.0f), clampf(f.y * active, -500.0f, 500.0f),
-         clampf(f.z * active, -500.0f, 500.0f)};
-    V3 t = cross(r, f);
+    V3 t, f;
+    contact_wrench(get_body(st, b), ld3(a.body_f + (size_t)b * BODY_F + 14),
+                   a.cf + (size_t)c * CONTACT_F, t, f);
     st.ft[b][0] -= t.x; st.ft[b][1] -= t.y; st.ft[b][2] -= t.z;
     st.ff[b][0] -= f.x; st.ff[b][1] -= f.y; st.ff[b][2] -= f.z;
   }
@@ -203,105 +367,21 @@ __device__ void substep(const Args& a, EnvState& st, int e, int s, bool obs,
     }
   }
 
-  // ---- joints (pallas_soa.py:760-903)
+  // ---- joints, in body order
   const size_t srow = (size_t)s * a.n_qd;
   for (int b = 0; b < B; ++b) {
     const int* bi = a.body_i + (size_t)b * BODY_I;
-    const float* bf = a.body_f + (size_t)b * BODY_F;
     const int jt = bi[1];
     if (jt != JOINT_FIXED && jt != JOINT_REVOLUTE && jt != JOINT_COMPOUND) continue;
     const int p = bi[0];
     const bool hp = p >= 0;
-
-    Q4 q_c = getq(st, b);
-    V3 t_c = gett(st, b), w_c = getw(st, b), v_c = getv(st, b);
-    Q4 xpq = ld4(bf + 6);
-    V3 xpt = ld3(bf + 3);
-    Q4 X_wp_q = xpq;
-    V3 X_wp_t = xpt, w_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f}, r_p = {0.f, 0.f, 0.f};
-    if (hp) {
-      Q4 pq = getq(st, p);
-      X_wp_q = qmul(pq, xpq);
-      X_wp_t = add(gett(st, p), qrot(pq, xpt));
-      w_p = getw(st, p);
-      v_p = getv(st, p);
-      r_p = qrot(pq, ld3(bf + 17));
-    }
-    V3 r_c = scale(qrot(q_c, ld3(bf + 14)), -1.0f);
-    V3 x_err = sub(t_c, X_wp_t);
-    Q4 r_err = qmul(qinv(X_wp_q), q_c);
-    V3 v_err = sub(v_c, v_p);
-    V3 w_err = sub(w_c, w_p);
-    const float ke_a = a.attach_ke, kd_a = a.attach_kd;
-
-    V3 tt, fj;
-    V3 attach = add(scale(x_err, ke_a), scale(v_err, kd_a));
-    if (jt == JOINT_FIXED) {
-      // Taylor-safe axis-angle of r_err
-      V3 rv = {r_err.x, r_err.y, r_err.z};
-      float sq = dot(rv, rv);
-      bool is_zero = sq < 1e-12f;
-      float norms = is_zero ? 0.0f : sqrtf(sq);
-      float half = katan2(norms, r_err.w);
-      float ang = 2.0f * half;
-      bool small = fabsf(ang) < 1e-6f;
-      float sho = small ? 0.5f - ang * ang / 48.0f : sinf(half) / ang;
-      V3 ang_err = {rv.x / sho, rv.y / sho, rv.z / sho};
-      V3 tf = qrot(X_wp_q, ang_err);
-      fj = attach;
-      tt = {tf.x * ke_a + w_err.x * kd_a * kAngDamp,
-            tf.y * ke_a + w_err.y * kd_a * kAngDamp,
-            tf.z * ke_a + w_err.z * kd_a * kAngDamp};
-    } else if (jt == JOINT_REVOLUTE) {
-      V3 axis = ld3(bf);
-      V3 axis_p = qrot(X_wp_q, axis);
-      V3 axis_cw = qrot(q_c, axis);
-      float s_tw = r_err.x * axis.x + r_err.y * axis.y + r_err.z * axis.z;
-      float q_ang = 2.0f * katan2(s_tw, r_err.w);
-      float qd_ang = dot(w_err, axis_p);
-      float fmag = joint_force(a, bf, bi, 0, b, e, srow, q_ang, qd_ang);
-      V3 swing = cross(axis_p, axis_cw);
-      fj = attach;
-      tt = {axis_p.x * fmag + swing.x * ke_a + (w_err.x - qd_ang * axis_p.x) * kd_a * kAngDamp,
-            axis_p.y * fmag + swing.y * ke_a + (w_err.y - qd_ang * axis_p.y) * kd_a * kAngDamp,
-            axis_p.z * fmag + swing.z * ke_a + (w_err.z - qd_ang * axis_p.z) * kd_a * kAngDamp};
-    } else {  // JOINT_COMPOUND: intrinsic-XYZ split
-      Q4 qoff = ld4(bf + 10);
-      Q4 q_pc = qmul(qmul(qinv(qoff), r_err), qoff);
-      float x = q_pc.x, y = q_pc.y, z = q_pc.z, w = q_pc.w;
-      float m12 = 2.0f * (y * z - w * x);
-      float m22 = 1.0f - 2.0f * (x * x + y * y);
-      float m02 = 2.0f * (x * z + w * y);
-      float m01 = 2.0f * (x * y - w * z);
-      float m00 = 1.0f - 2.0f * (y * y + z * z);
-      float ang[3];
-      ang[0] = katan2(-m12, m22);
-      ang[1] = kasin(clampf(m02, -kSinLimit, kSinLimit));
-      ang[2] = katan2(-m01, m00);
-      Q4 q0 = {sinf(0.5f * ang[0]), 0.0f, 0.0f, cosf(0.5f * ang[0])};
-      V3 ax[3];
-      ax[0] = {1.0f, 0.0f, 0.0f};
-      ax[1] = qrot(q0, {0.0f, 1.0f, 0.0f});
-      float sb = sinf(0.5f * ang[1]), cb = cosf(0.5f * ang[1]);
-      Q4 q1 = {ax[1].x * sb, ax[1].y * sb, ax[1].z * sb, cb};
-      ax[2] = qrot(qmul(q1, q0), {0.0f, 0.0f, 1.0f});
-      Q4 q_w = qmul(X_wp_q, qoff);
-      V3 tc = {0.0f, 0.0f, 0.0f};
-      for (int k = 0; k < 3; ++k) {
-        V3 ax_w = qrot(q_w, ax[k]);
-        float fmag = joint_force(a, bf, bi, k, b, e, srow, ang[k], dot(ax_w, w_err));
-        tc = add(tc, scale(ax_w, fmag));
-      }
-      tt = clamp3(tc, 10000.0f);
-      fj = clamp3(attach, 10000.0f);
-    }
-
-    // scatter: child -= (t + r_c x f, f); parent += (t + r_p x f, f)
-    V3 child_t = add(tt, cross(r_c, fj));
+    const Body c = get_body(st, b);
+    V3 child_t, parent_t, fj;
+    joint_wrench(a, jt, hp, c, hp ? get_body(st, p) : c, a.body_f + (size_t)b * BODY_F,
+                 EnvDrive{a, bi, b, e, srow}, child_t, parent_t, fj);
     st.ft[b][0] -= child_t.x; st.ft[b][1] -= child_t.y; st.ft[b][2] -= child_t.z;
     st.ff[b][0] -= fj.x; st.ff[b][1] -= fj.y; st.ff[b][2] -= fj.z;
     if (hp) {
-      V3 parent_t = add(tt, cross(r_p, fj));
       st.ft[p][0] += parent_t.x; st.ft[p][1] += parent_t.y; st.ft[p][2] += parent_t.z;
       st.ff[p][0] += fj.x; st.ff[p][1] += fj.y; st.ff[p][2] += fj.z;
     }
@@ -320,52 +400,22 @@ __device__ void substep(const Args& a, EnvState& st, int e, int s, bool obs,
   }
   if (!integrate) return;
 
-  // ---- symplectic Euler (pallas_soa.py:909-944)
+  // ---- symplectic Euler, body by body
   for (int b = 0; b < B; ++b) {
-    const float* bf = a.body_f + (size_t)b * BODY_F;
-    Q4 q_c = getq(st, b);
-    V3 t_c = gett(st, b), w_c = getw(st, b), v_c = getv(st, b);
-    V3 comc = ld3(bf + 14);
-    V3 tq = {st.ft[b][0], st.ft[b][1], st.ft[b][2]};
-    V3 fo = {st.ff[b][0], st.ff[b][1], st.ff[b][2]};
-    float inv_m = plane(a.inv_m, a.inv_m_pe, 0, b, e, B, E);
     float I[9], Ii[9];
     for (int k = 0; k < 9; ++k) {
       I[k] = plane(a.inertia, a.inertia_pe, k, b, e, B, E);
       Ii[k] = plane(a.inv_inertia, a.inv_inertia_pe, k, b, e, B, E);
     }
-    V3 x_com = add(t_c, qrot(q_c, comc));
-    V3 v1 = {v_c.x + (fo.x * inv_m + a.gx) * a.dt,
-             v_c.y + (fo.y * inv_m + a.gy) * a.dt,
-             v_c.z + (fo.z * inv_m + a.gz) * a.dt};
-    V3 x1 = add(x_com, scale(v1, a.dt));
-
-    V3 wb = qrot_inv(q_c, w_c);
-    V3 tb = qrot_inv(q_c, tq);
-    V3 Iw = {I[0] * wb.x + I[1] * wb.y + I[2] * wb.z,
-             I[3] * wb.x + I[4] * wb.y + I[5] * wb.z,
-             I[6] * wb.x + I[7] * wb.y + I[8] * wb.z};
-    tb = sub(tb, cross(wb, Iw));
-    V3 It = {Ii[0] * tb.x + Ii[1] * tb.y + Ii[2] * tb.z,
-             Ii[3] * tb.x + Ii[4] * tb.y + Ii[5] * tb.z,
-             Ii[6] * tb.x + Ii[7] * tb.y + Ii[8] * tb.z};
-    V3 w1 = qrot(q_c, add(wb, scale(It, a.dt)));
-    // dr = 0.5*dt*quat(w1,0)*r0 with the pre-damping w1
-    Q4 dq = qmul({w1.x, w1.y, w1.z, 0.0f}, q_c);
-    const float hdt = 0.5f * a.dt;
-    Q4 r1 = {q_c.x + hdt * dq.x, q_c.y + hdt * dq.y, q_c.z + hdt * dq.z,
-             q_c.w + hdt * dq.w};
-    float n2 = r1.x * r1.x + r1.y * r1.y + r1.z * r1.z + r1.w * r1.w;
-    float inv = 1.0f / sqrtf(fmaxf(n2, 1e-18f));
-    r1 = {r1.x * inv, r1.y * inv, r1.z * inv, r1.w * inv};
-    w1 = clamp3(scale(w1, a.ang_decay), 10.0f);
-    v1 = clamp3(v1, 10.0f);
-    V3 new_t = sub(x1, qrot(r1, comc));
-
-    st.q[b][0] = new_t.x; st.q[b][1] = new_t.y; st.q[b][2] = new_t.z;
-    st.q[b][3] = r1.x; st.q[b][4] = r1.y; st.q[b][5] = r1.z; st.q[b][6] = r1.w;
-    st.qd[b][0] = w1.x; st.qd[b][1] = w1.y; st.qd[b][2] = w1.z;
-    st.qd[b][3] = v1.x; st.qd[b][4] = v1.y; st.qd[b][5] = v1.z;
+    Body s = get_body(st, b);
+    integrate_body(a, s, {st.ft[b][0], st.ft[b][1], st.ft[b][2]},
+                   {st.ff[b][0], st.ff[b][1], st.ff[b][2]},
+                   ld3(a.body_f + (size_t)b * BODY_F + 14),
+                   plane(a.inv_m, a.inv_m_pe, 0, b, e, B, E), I, Ii);
+    st.q[b][0] = s.t.x; st.q[b][1] = s.t.y; st.q[b][2] = s.t.z;
+    st.q[b][3] = s.q.x; st.q[b][4] = s.q.y; st.q[b][5] = s.q.z; st.q[b][6] = s.q.w;
+    st.qd[b][0] = s.w.x; st.qd[b][1] = s.w.y; st.qd[b][2] = s.w.z;
+    st.qd[b][3] = s.v.x; st.qd[b][4] = s.v.y; st.qd[b][5] = s.v.z;
   }
 }
 

@@ -17,6 +17,7 @@ counterpart of ``ppr_diffphys_tpu/sim/pallas_soa.py`` (``build_soa_static``,
   wrapper, with the parameters baked in as lane-1 planes: CPU tensors take
   ``integrator.rollout_substeps``; CUDA tensors launch
   ``csrc/soa_rollout.cu`` or raise.
+- :func:`envs_per_cta` sizes the CTAs of the warp-per-env kernels (K3, K4).
 """
 
 from __future__ import annotations
@@ -40,7 +41,12 @@ from .integrator import (
 KERNEL = "soa_window"
 KERNEL_ROLLOUT = "soa_rollout"
 TRACED_NAMES = ("gains", "inv_m", "inertia", "inv_inertia")
-THREADS_PER_BLOCK = 32
+THREADS_PER_BLOCK = 32  # the thread-per-env kernels (K1, K2)
+# The warp-per-env kernels (K3, K4) hold 1, 2, 4 or 8 consecutive envs per
+# CTA, one per warp. MIN_CTAS is the largest power of two not above the
+# H100's 132 SMs, so that power-of-two widths (512, 4096) give whole CTAs.
+ENVS_PER_CTA = (8, 4, 2, 1)
+MIN_CTAS = 128
 
 
 def soa_static(model, device="cpu") -> dict:
@@ -95,11 +101,19 @@ def soa_static(model, device="cpu") -> dict:
 
 
 def pack_static(static: dict) -> dict:
-    """The kernel's packed constant buffers (see csrc/soa_window.cu):
+    """The kernels' packed constant buffers (see csrc/substep.cuh):
     ``body_i`` (B,5) int32 = parent, joint type, 3 dof indices;
     ``body_f`` (B,32) f32 = axis, xp_t, xp_q, xc_q, com, rp_local, limit
     lower/upper/ke/kd; ``cbody`` (C,) int32; ``cf`` (C,8) f32 = point,
-    dist, ke, kd, kf, mu."""
+    dist, ke, kd, kf, mu.
+
+    For the warp-per-env kernels (csrc/substep_warp.cuh), the per-body
+    lists each body's lane sums in the thread loop's order: ``c_off``
+    (B+1,) int32, body b's contacts are c_off[b] .. c_off[b+1] (cbody is
+    body-sorted); ``adj_off`` (B+1,) and ``adj`` int32, body b's joint
+    wrenches are adj[adj_off[b] .. adj_off[b+1]], joints in body order,
+    2j for joint j's child part (body b is its child) and 2j+1 for its
+    parent part."""
     body_i = torch.cat(
         [static["parent"][:, None], static["joint_type"][:, None], static["dof_idx"]], 1
     )
@@ -111,9 +125,23 @@ def pack_static(static: dict) -> dict:
     cf = torch.cat(
         [static["cpt"][..., 0], static["cdist"].T, static["cmat"][..., 0]], 0
     ).T
+    parent = static["parent"].cpu().numpy()
+    jt = static["joint_type"].cpu().numpy()
+    B = len(parent)
+    lists = [[] for _ in range(B)]
+    for j in range(B):
+        if jt[j] in (JOINT_FIXED, JOINT_REVOLUTE, JOINT_COMPOUND):
+            lists[j].append(2 * j)
+            if parent[j] >= 0:
+                lists[parent[j]].append(2 * j + 1)
+    adj_off = np.cumsum([0] + [len(x) for x in lists])
+    adj = np.array([x for lst in lists for x in lst], np.int64)
+    c_off = np.searchsorted(static["contact_body"].cpu().numpy(), np.arange(B + 1), "left")
+    as_i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=body_i.device)
     return dict(
         body_i=body_i.contiguous(), body_f=body_f.contiguous(),
         cbody=static["contact_body"].contiguous(), cf=cf.contiguous(),
+        adj_off=as_i32(adj_off), adj=as_i32(adj), c_off=as_i32(c_off),
     )
 
 
@@ -177,28 +205,57 @@ def ptr(t):
 
 class PackedConsts:
     """A wrapper's packed per-model constants (``pack_static(soa_static(
-    model))``), built once per device and kept alive here. ``ptrs(dev)``
-    gives the kernels' four constant arguments: body_i, body_f, cbody, cf."""
+    model))``), built once per device and kept alive here, with their
+    argument lists. ``ptrs(dev)`` gives the kernels' four constant
+    arguments: body_i, body_f, cbody, cf; ``warp_ptrs(dev)`` adds the
+    per-body lists of the warp-per-env kernels: adj_off, adj, c_off and the
+    length of adj."""
 
     def __init__(self, model):
         self.model = model
-        self._by_dev = {}
+        self._by_dev = {}  # str(dev) -> (packed tensors, ptrs, warp_ptrs)
 
-    def ptrs(self, dev) -> list:
+    def _entry(self, dev) -> tuple:
         key = str(dev)
         if key not in self._by_dev:
-            self._by_dev[key] = pack_static(soa_static(self.model, dev))
-        c = self._by_dev[key]
-        return [ptr(c[n]) for n in ("body_i", "body_f", "cbody", "cf")]
+            c = pack_static(soa_static(self.model, dev))
+            base = [ptr(c[n]) for n in ("body_i", "body_f", "cbody", "cf")]
+            warp = base + [ptr(c[n]) for n in ("adj_off", "adj", "c_off")] + [
+                int(c["adj"].numel())]
+            self._by_dev[key] = (c, base, warp)
+        return self._by_dev[key]
+
+    def ptrs(self, dev) -> list:
+        return self._entry(dev)[1]
+
+    def warp_ptrs(self, dev) -> list:
+        return self._entry(dev)[2]
 
 
-def launch_tail(model, dt: float, dev) -> list:
-    """The arguments every launch entry point ends with: dt, the angular
-    decay, gravity, the attach gains, the threads per block and the stream."""
+def envs_per_cta(E: int) -> int:
+    """Envs (warps) per CTA of the warp-per-env kernels: the largest of
+    ``ENVS_PER_CTA`` whose grid of ceil(E / k) CTAs still has at least
+    ``MIN_CTAS`` CTAs, else 1 (512 envs: 4, 128 CTAs; 4096: 8, 512 CTAs).
+    The last CTA of a ragged E holds the remaining envs."""
+    for k in ENVS_PER_CTA:
+        if -(-int(E) // k) >= MIN_CTAS:
+            return k
+    return 1
+
+
+def sim_args(model, dt: float) -> list:
+    """dt, the angular decay, gravity and the attach gains, as every launch
+    entry point takes them."""
     g = model.gravity
     return [float(dt), 1.0 - 0.1 * float(dt), float(g[0]), float(g[1]), float(g[2]),
-            float(model.joint_attach_ke), float(model.joint_attach_kd),
-            THREADS_PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream]
+            float(model.joint_attach_ke), float(model.joint_attach_kd)]
+
+
+def launch_tail(model, dt: float, dev, per_block: int) -> list:
+    """The arguments every launch entry point ends with: ``sim_args``,
+    ``per_block`` (threads per block of a thread-per-env kernel, envs per
+    CTA of a warp-per-env one) and the stream."""
+    return sim_args(model, dt) + [int(per_block), torch.cuda.current_stream(dev).cuda_stream]
 
 
 def check_bodies(name: str, B: int, max_b: int):
@@ -206,12 +263,11 @@ def check_bodies(name: str, B: int, max_b: int):
         raise ValueError("%s supports at most %d bodies, got %d" % (name, max_b, B))
 
 
-def env_innermost(name: str, model, state: SimState, joint_targets, joint_acts, S: int,
-                  planes) -> tuple:
-    """Checks a launch's inputs (float32 on the state's device, the shapes
-    the kernel reads, parameter planes of lane 1 or E) and lays them out env
-    innermost, so that a warp reads 32 consecutive floats: bq (7,B,E), bqd
-    (6,B,E), tgt and act (S,n_qd,E) (act None stays None)."""
+def check_inputs(name: str, model, state: SimState, joint_targets, joint_acts, S: int,
+                 planes):
+    """Checks a launch's inputs: float32 on the state's device, state
+    (E,B,7)/(E,B,6), targets and acts (S,E,n_qd), parameter planes of lane
+    1 or E."""
     dev = state.body_q.device
     E, B, n_qd = state.body_q.shape[0], model.n_links, model.n_qd
     tensors = [state.body_q, state.body_qd, joint_targets] + list(planes)
@@ -230,6 +286,15 @@ def env_innermost(name: str, model, state: SimState, joint_targets, joint_acts, 
         if p.shape[-1] not in (1, E):
             raise ValueError("a parameter plane has lane width %d, not 1 or E=%d"
                              % (p.shape[-1], E))
+
+
+def env_innermost(name: str, model, state: SimState, joint_targets, joint_acts, S: int,
+                  planes) -> tuple:
+    """Checks a launch's inputs (``check_inputs``) and lays them out env
+    innermost for the thread-per-env window kernel, so that a warp reads 32
+    consecutive floats: bq (7,B,E), bqd (6,B,E), tgt and act (S,n_qd,E)
+    (act None stays None)."""
+    check_inputs(name, model, state, joint_targets, joint_acts, S, planes)
     bq = state.body_q.permute(2, 1, 0).contiguous()
     bqd = state.body_qd.permute(2, 1, 0).contiguous()
     tgt = joint_targets.permute(0, 2, 1).contiguous()
@@ -316,7 +381,7 @@ class SoaWindow:
             ptr(planes["inv_inertia"]), pe("inv_inertia"),
             ptr(out_q), ptr(out_qd), ptr(out_grf), ptr(out_jaf),
             E, B, model.n_qd, model.contact_count, F, self.sub,
-            *launch_tail(model, self.dt, dev),
+            *launch_tail(model, self.dt, dev, THREADS_PER_BLOCK),
         )
         kbuild.check(status, KERNEL)
         self.launches += 1
@@ -350,11 +415,12 @@ def _rollout_lib():
     lib.soa_rollout_launch.argtypes = (
         [P] * 4  # bq0 bqd0 tgt act
         + [P] * 4  # body_i body_f cbody cf
+        + [P] * 3 + [I]  # adj_off adj c_off, len(adj)
         + [P] * 4  # gains inv_m inertia inv_inertia (lane 1)
         + [P] * 2  # out_q out_qd
         + [I] * 5  # E B n_qd C S
         + [Fl] * 7  # dt ang_decay gx gy gz attach_ke attach_kd
-        + [I, P]  # threads per block, stream
+        + [I, P]  # envs per CTA, stream
     )
     lib.soa_rollout_launch.restype = I
     return lib
@@ -370,7 +436,11 @@ class SoaRollout:
 
     CPU tensors run the plain version (``integrator.rollout_substeps``);
     CUDA tensors launch ``csrc/soa_rollout.cu``, counted in
-    ``self.launches``, or raise."""
+    ``self.launches``, or raise. The kernel runs one warp per env,
+    ``envs_per_cta(E)`` envs per CTA, and reads the state and the
+    targets/acts in the caller's layout and writes the final (E,B,7)/(E,B,6)
+    state directly: the wrapper copies nothing (``.contiguous()`` is a no-op
+    on the bench's tensors)."""
 
     def __init__(self, integrator: SemiImplicitIntegrator, params: SimParams, dt: float,
                  substeps: int):
@@ -409,21 +479,24 @@ class SoaRollout:
         lib = _rollout_lib()
         check_bodies(KERNEL_ROLLOUT, B, lib.soa_rollout_max_bodies())
         pl = self.planes
-        bq, bqd, tgt, act = env_innermost(KERNEL_ROLLOUT, model, state, joint_targets,
-                                          joint_acts, self.S, pl.values())
+        check_inputs(KERNEL_ROLLOUT, model, state, joint_targets, joint_acts, self.S,
+                     pl.values())
+        bq, bqd = state.body_q.contiguous(), state.body_qd.contiguous()
+        tgt = joint_targets.contiguous()
+        act = None if joint_acts is None else joint_acts.contiguous()
         dev = bq.device
-        out_q = torch.empty((7, B, E), dtype=torch.float32, device=dev)
-        out_qd = torch.empty((6, B, E), dtype=torch.float32, device=dev)
+        out_q = torch.empty((E, B, 7), dtype=torch.float32, device=dev)
+        out_qd = torch.empty((E, B, 6), dtype=torch.float32, device=dev)
         status = lib.soa_rollout_launch(
-            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *self._consts.ptrs(dev),
+            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *self._consts.warp_ptrs(dev),
             ptr(pl["gains"]), ptr(pl["inv_m"]), ptr(pl["inertia"]), ptr(pl["inv_inertia"]),
             ptr(out_q), ptr(out_qd),
             E, B, model.n_qd, model.contact_count, self.S,
-            *launch_tail(model, self.dt, dev),
+            *launch_tail(model, self.dt, dev, envs_per_cta(E)),
         )
         kbuild.check(status, KERNEL_ROLLOUT)
         self.launches += 1
-        return SimState(out_q.permute(2, 1, 0), out_qd.permute(2, 1, 0))
+        return SimState(out_q, out_qd)
 
 
 def build_soa_rollout(integrator: SemiImplicitIntegrator, params: SimParams, dt: float,

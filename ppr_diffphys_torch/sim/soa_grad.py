@@ -30,14 +30,15 @@ import torch
 
 from ..csrc import build as kbuild
 from .integrator import SemiImplicitIntegrator, SimParams, SimState, interval
-from .soa import (THREADS_PER_BLOCK, TRACED_NAMES, PackedConsts, launch_tail, ptr, traced_planes,
-                  window_work)
+from .soa import (THREADS_PER_BLOCK, TRACED_NAMES, PackedConsts, envs_per_cta, ptr, sim_args,
+                  traced_planes, window_work)
 
 KERNEL = "soa_interval"
 KERNEL_FWD, KERNEL_BWD, KERNEL_REDUCE = (
     "soa_interval_fwd", "soa_interval_bwd", "soa_interval_reduce")
 # rows per body of each traced plane, in the kernel's gradient layout
 PLANE_ROWS = dict(gains=6, inv_m=1, inertia=9, inv_inertia=9)
+REDUCE_WARPS_PER_CTA = 8  # the env reduction: one warp per plane row
 
 
 def _kernel_lib():
@@ -45,8 +46,10 @@ def _kernel_lib():
     lib = kbuild.load(KERNEL)
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     consts = [P] * 4  # body_i body_f cbody cf
+    lists = [P] * 3 + [I]  # adj_off adj c_off, len(adj)
     planes = [P, I] * 4  # gains inv_m inertia inv_inertia, each with its per-env flag
-    tail = [I] * 5 + [Fl] * 7 + [I, P]  # E B n_qd C S; dt ang_decay g attach; threads stream
+    # E B n_qd C S; dt ang_decay g attach; threads (K2) or envs per CTA (K3), stream
+    tail = [I] * 5 + [Fl] * 7 + [I, P]
     for fn in (lib.soa_interval_plane_rows, lib.soa_interval_max_bodies):
         fn.argtypes = []
         fn.restype = I
@@ -54,7 +57,7 @@ def _kernel_lib():
         [P] * 5 + consts + planes + [P] * 3 + tail)  # bq0 bqd0 tgt act res | out_q out_qd sstate
     lib.soa_interval_fwd_launch.restype = I
     lib.soa_interval_bwd_launch.argtypes = (
-        [P] * 4 + consts + planes + [P] * 8 + tail)  # sstate tgt act res | dq dqd dbq0 dbqd0 dtgt dact dres dplanes
+        [P] * 4 + consts + lists + planes + [P] * 8 + tail)  # sstate tgt act res | dq dqd dbq0 dbqd0 dtgt dact dres dplanes
     lib.soa_interval_bwd_launch.restype = I
     lib.soa_interval_reduce_launch.argtypes = [P, P, I, I, I, P]
     lib.soa_interval_reduce_launch.restype = I
@@ -126,7 +129,8 @@ class DiffInterval:
     # ---- kernel launches ---------------------------------------------------
     def _common(self, tgt, act, res, planes, E):
         """Checked, contiguous inputs and the argument groups shared by K2
-        and K3."""
+        and K3 (the tail stops before threads per block or envs per CTA,
+        and the stream)."""
         model = self.model
         B, n_qd, S = model.n_links, model.n_qd, self.S
         dev = tgt.device
@@ -148,12 +152,11 @@ class DiffInterval:
                                  % (n, dev, E))
             pl.append(p.contiguous())
         pe = lambda p: int(p.shape[-1] == E and E > 1)
-        consts = self._consts.ptrs(dev)
         plane_args = []
         for p in pl:
             plane_args += [ptr(p), pe(p)]
-        tail = [E, B, n_qd, model.contact_count, S] + launch_tail(model, self.dt, dev)
-        return out, pl, consts, plane_args, tail
+        tail = [E, B, n_qd, model.contact_count, S] + sim_args(model, self.dt)
+        return out, pl, plane_args, tail
 
     def _forward(self, bq, bqd, tgt, act, res, planes, export):
         B = self.model.n_links
@@ -168,7 +171,7 @@ class DiffInterval:
         if B > lib.soa_interval_max_bodies():
             raise ValueError("soa_interval supports at most %d bodies, got %d"
                              % (lib.soa_interval_max_bodies(), B))
-        seq, _, consts, plane_args, tail = self._common(tgt, act, res, planes, E)
+        seq, _, plane_args, tail = self._common(tgt, act, res, planes, E)
         bq, bqd = bq.contiguous(), bqd.contiguous()
         out_q = torch.empty((7, B, E), dtype=torch.float32, device=dev)
         out_qd = torch.empty((6, B, E), dtype=torch.float32, device=dev)
@@ -176,16 +179,23 @@ class DiffInterval:
                   if export else None)
         status = lib.soa_interval_fwd_launch(
             ptr(bq), ptr(bqd), ptr(seq["tgt"]), ptr(seq["act"]), ptr(seq["res"]),
-            *consts, *plane_args, ptr(out_q), ptr(out_qd), ptr(sstate), *tail)
+            *self._consts.ptrs(dev), *plane_args, ptr(out_q), ptr(out_qd), ptr(sstate), *tail,
+            THREADS_PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
         kbuild.check(status, KERNEL_FWD)
         self.launches[KERNEL_FWD] += 1
         return out_q, out_qd, sstate
 
     def _backward(self, sstate, tgt, act, res, planes, dq, dqd):
+        """K3 (one warp per env, ``envs_per_cta(E)`` envs per CTA) on the
+        (S,13,B,E) export and the cotangents dq (7,B,E), dqd (6,B,E), then,
+        for shared planes, the env reduction (one warp per plane row).
+        Returns (dbq, dbqd, dtgt, dact or None, dres or None, [the four plane
+        gradients in the planes' shapes])."""
         B, E = sstate.shape[2], sstate.shape[3]
         dev = sstate.device
         lib = _kernel_lib()
-        seq, pl, consts, plane_args, tail = self._common(tgt, act, res, planes, E)
+        seq, pl, plane_args, tail = self._common(tgt, act, res, planes, E)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         dq, dqd = dq.to(torch.float32).contiguous(), dqd.to(torch.float32).contiguous()
         f32 = dict(dtype=torch.float32, device=dev)
         dbq = torch.empty((7, B, E), **f32)
@@ -200,8 +210,8 @@ class DiffInterval:
         dplanes = torch.empty((rows, B, E), **f32)
         status = lib.soa_interval_bwd_launch(
             ptr(sstate), ptr(seq["tgt"]), ptr(seq["act"]), ptr(seq["res"]),
-            *consts, *plane_args, ptr(dq), ptr(dqd), ptr(dbq), ptr(dbqd),
-            ptr(dtgt), ptr(dact), ptr(dres), ptr(dplanes), *tail)
+            *self._consts.warp_ptrs(dev), *plane_args, ptr(dq), ptr(dqd), ptr(dbq), ptr(dbqd),
+            ptr(dtgt), ptr(dact), ptr(dres), ptr(dplanes), *tail, envs_per_cta(E), stream)
         kbuild.check(status, KERNEL_BWD)
         self.launches[KERNEL_BWD] += 1
 
@@ -210,7 +220,7 @@ class DiffInterval:
         if any(shared):
             summed = torch.empty((rows, B), **f32)
             status = lib.soa_interval_reduce_launch(
-                ptr(dplanes), ptr(summed), rows * B, E, THREADS_PER_BLOCK, tail[-1])
+                ptr(dplanes), ptr(summed), rows * B, E, REDUCE_WARPS_PER_CTA, stream)
             kbuild.check(status, KERNEL_REDUCE)
             self.launches[KERNEL_REDUCE] += 1
         grads, o = [], 0

@@ -19,12 +19,21 @@ import numpy as np
 from .builder import JOINT_COMPOUND, JOINT_FIXED, JOINT_FREE, JOINT_REVOLUTE, ModelBuilder
 
 
-def add_chain(b):
+def add_chain(b, extra_boxes: bool = False):
     """FREE box root -> COMPOUND link (finite limits, active limit springs)
-    -> FIXED link -> REVOLUTE link (finite limits). Returns the builder."""
+    -> FIXED link -> REVOLUTE link (finite limits). With ``extra_boxes``
+    every body also carries a massless box below it: 8 more ground contacts
+    each, 45 in all. Returns the builder."""
+
+    def extra(body):
+        if extra_boxes:
+            b.add_shape_box(body, (0.0, -0.03, 0.02), (0, 0, 0, 1), 0.03, 0.02, 0.03,
+                            density=0.0, ke=1e4, kd=0.0, kf=1e2, mu=1.0)
+
     b.add_body(parent=-1, joint_type=JOINT_FREE, joint_armature=0.01, name="root")
     b.add_shape_box(0, (0, 0, 0), (0, 0, 0, 1), 0.12, 0.05, 0.08, density=1000,
                     ke=1e4, kd=0.0, kf=1e2, mu=1.0)
+    extra(0)
     b.add_body(
         parent=0, joint_type=JOINT_COMPOUND,
         joint_xform=np.array([0.15, -0.02, 0.0, 0.0, 0.0, 0.0, 1.0]),
@@ -36,6 +45,7 @@ def add_chain(b):
     )
     b.add_shape_capsule(1, (0.08, 0, 0), (0, 0, 0, 1), 0.02, 0.08, density=1000,
                         ke=1e4, kd=0.0, kf=1e2, mu=1.0)
+    extra(1)
     b.add_body(
         parent=1, joint_type=JOINT_FIXED,
         joint_xform=np.array([0.16, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0]),
@@ -43,6 +53,7 @@ def add_chain(b):
     )
     b.add_shape_sphere(2, (0, 0, 0), (0, 0, 0, 1), 0.05, density=1000,
                        ke=1e4, kd=0.0, kf=1e2, mu=1.0)
+    extra(2)
     b.add_body(
         parent=2, joint_type=JOINT_REVOLUTE,
         joint_xform=np.array([0.05, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0]),
@@ -54,13 +65,16 @@ def add_chain(b):
     )
     b.add_shape_capsule(3, (0.06, 0, 0), (0, 0, 0, 1), 0.025, 0.06, density=1000,
                         ke=1e4, kd=0.0, kf=1e2, mu=1.0)
+    extra(3)
     return b
 
 
-def chain_model(builder_cls=ModelBuilder):
+def chain_model(builder_cls=ModelBuilder, extra_boxes: bool = False):
     """The finalized chain with ground contacts and the robot templates'
-    attach gains (ke=16000, kd=200)."""
-    model = add_chain(builder_cls()).finalize().make_ground_contacts()
+    attach gains (ke=16000, kd=200). ``extra_boxes`` gives 45 contacts:
+    more than one chunk of 32 for the warp-per-env kernels, with the FIXED
+    link's contacts (26-34) across the chunk boundary."""
+    model = add_chain(builder_cls(), extra_boxes).finalize().make_ground_contacts()
     model.joint_attach_ke, model.joint_attach_kd = 16000.0, 200.0
     return model
 

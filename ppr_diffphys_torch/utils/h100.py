@@ -64,6 +64,6 @@ def kernel_times(fn, n: int):
         if dev_us is None:
             dev_us = e.self_cuda_time_total
         if dev_us > 0:
-            rows.append((dev_us / n / 1e3, e.count // n, e.key))
+            rows.append((dev_us / n / 1e3, e.count / n, e.key))
     rows.sort(reverse=True)
     return wall_ms, rows

@@ -32,6 +32,8 @@ def _need_gpu():
 def _model(name):
     if name == "chain":
         return synthetic.chain_model()
+    if name == "chain45":
+        return synthetic.chain_model(extra_boxes=True)
     return H.a1_model(tbuilder, timport)
 
 
@@ -59,16 +61,19 @@ def test_library_path_tracks_the_source():
 
 
 def test_library_path_tracks_the_shared_header(tmp_path, monkeypatch):
-    """An edit to csrc/substep.cuh renames (so rebuilds) every library."""
+    """An edit to a shared header (csrc/substep.cuh, or csrc/substep_warp.cuh
+    of the warp-per-env K3 and K4) renames (so rebuilds) every library."""
     for f in kbuild.SRC_DIR.iterdir():
         if f.suffix in (".cu", ".cuh"):
             (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(kbuild, "SRC_DIR", tmp_path)
-    before = {n: kbuild.library_path(n) for n in (soa.KERNEL, soa_grad.KERNEL, soa.KERNEL_ROLLOUT)}
-    with open(tmp_path / "substep.cuh", "a") as f:
-        f.write("\n// edited\n")
-    for n, p in before.items():
-        assert kbuild.library_path(n) != p
+    names = (soa.KERNEL, soa_grad.KERNEL, soa.KERNEL_ROLLOUT)
+    for header in ("substep.cuh", "substep_warp.cuh"):
+        before = {n: kbuild.library_path(n) for n in names}
+        with open(tmp_path / header, "a") as f:
+            f.write("\n// edited\n")
+        for n, p in before.items():
+            assert kbuild.library_path(n) != p, (header, n)
 
 
 @pytest.mark.cuda
@@ -266,8 +271,9 @@ def test_cuda_interval_raises_without_its_library(monkeypatch):
 def test_rollout_kernel_matches_plain(name):
     """K4 against its plain version (integrator.rollout_substeps) on the
     card, 33 substeps with penetrating contacts, random and no acts; its
-    final state equals K2's without export bit for bit (both run
-    substep.cuh). Tolerance as the window's after 33 substeps."""
+    final state equals K2's without export bit for bit (the warp-per-env K4
+    runs substep.cuh's units in the thread-per-env K2's order of sums).
+    Tolerance as the window's after 33 substeps."""
     _need_gpu()
     dev = torch.device("cuda")
     model = _model(name)
@@ -319,3 +325,54 @@ def test_rollout_rejects_per_env_params_on_cuda():
     _, _, _, params = _inputs(model, 8, 2, True, torch.device("cuda"))
     with pytest.raises(ValueError, match="per-env"):
         soa.build_soa_rollout(tint.SemiImplicitIntegrator(model), params, DT, SUB)
+
+
+E_RAGGED = 1027  # 8 envs per CTA in the warp-per-env kernels, the last CTA holding 3
+
+
+@pytest.mark.cuda
+def test_rollout_kernel_many_contacts_ragged():
+    """K4 with 45 contacts (two chunks of 32 lanes) at 1027 envs (a ragged
+    last CTA) against its plain version and K2, as
+    test_rollout_kernel_matches_plain."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model("chain45")
+    assert model.contact_count > 32 and E_RAGGED % soa.envs_per_cta(E_RAGGED) != 0
+    state, tgt, act, params = _inputs(model, E_RAGGED, 2, False, dev)
+    tgt, act = tgt[:SUB].contiguous(), act[:SUB].contiguous()
+    integ = tint.SemiImplicitIntegrator(model)
+    k4 = soa.build_soa_rollout(integ, params, DT, SUB)
+    planes = soa.traced_planes(model, params)
+    out = k4(state, tgt, act)
+    ref = tint.rollout_substeps(integ, params, state, tgt, act, DT)
+    torch.testing.assert_close(out.body_q, ref.body_q, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out.body_qd, ref.body_qd, rtol=0, atol=5e-3)
+    di = soa_grad.DiffInterval(integ, DT, SUB, with_act=True)
+    with torch.no_grad():
+        bq, bqd = di(state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0),
+                     tgt.permute(0, 2, 1), act.permute(0, 2, 1), None,
+                     *(planes[n] for n in soa.TRACED_NAMES))
+    torch.testing.assert_close(bq.permute(2, 1, 0), out.body_q, rtol=0, atol=1e-5)
+    torch.testing.assert_close(bqd.permute(2, 1, 0), out.body_qd, rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_env", [False, True], ids=["shared", "per_env"])
+def test_interval_backward_many_contacts_ragged(per_env):
+    """K3 with 45 contacts at 1027 envs, acts and residual forces, at the
+    plain linearization (every gradient, per-env plane partials included,
+    within 1e-4 of its max; shared planes also through the env reduction,
+    held to the fp32 summation bound)."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model("chain45")
+    case = _interval_case(model, E_RAGGED, per_env, dev)
+    di = soa_grad.DiffInterval(tint.SemiImplicitIntegrator(model), DT, SUB, with_res=True,
+                               with_act=True)
+    rel = lambda a, b: (a - b).abs() / (float(a.abs().max()) + 1e-12)
+    names = ["bq0", "bqd0", "tgt", "act", "res"] + list(soa.TRACED_NAMES)
+    for n, a, b in zip(names, *_linearized_grads(model, di, *case)):
+        assert torch.isfinite(b).all(), n
+        assert float(rel(a, b).max()) <= 1e-4, n
+    assert di.launches["soa_interval_reduce"] == (0 if per_env else 1)
