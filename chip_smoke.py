@@ -9,10 +9,12 @@ Phases (any failure exits non-zero):
     nvcc (sm_90a),
     one nvcc per source, all started together, timed, with ptxas' registers,
     stack and spills;
- 3. kernel vs plain: the soa_window kernel against its plain PyTorch
+ 3. kernel vs plain: the soa_window kernel K1 against its plain PyTorch
     version (sim/integrator.rollout) on the card, on a1 and on the
-    FIXED/COMPOUND/REVOLUTE chain, with shared and per-env parameter
-    planes, E=256 envs, F=4 frames of 33 substeps, penetrating contacts;
+    FIXED/COMPOUND/REVOLUTE chain at E=256 envs and on the chain with 45
+    contacts (two chunks of 32 lanes) at E=1027 (8 envs per CTA, the last
+    CTA holding 3), with shared and per-env parameter planes, F=4 frames of
+    33 substeps, penetrating contacts;
  4. main path: RolloutServer(num_envs=4096, frames=24, device="cuda") on a1
     with the committed 48-frame clip and random seeded MLP weights, integer
     frame starts spread over [0, 24]: one warm-up and 3 timed rollouts, with
@@ -28,7 +30,7 @@ Phases (any failure exits non-zero):
     33 substeps, penetrating contacts, for the loss sum(w * outputs) with
     seeded weights: K3 on the plain forward's own substep states, every
     env, and (at E=256) end to end; and K2 chained over a window against
-    K1, bit for bit;
+    K1, bit for bit (both run the warp substep);
  6. training main path: the port's phys_model on a1 with the committed clip,
     num_envs=512, frames_per_wdw=24, default loss weights and noise_std:
     one warm-up and 3 timed forward()+update() steps, with the launch counts
@@ -36,7 +38,9 @@ Phases (any failure exits non-zero):
     interval and step); the peak device memory; 2 more steps under
     torch.profiler (device busy share, time by kernel); then K2 and K3 timed
     alone on the main path's own first-interval inputs (each wrapper by
-    CUDA events, each kernel's device time by torch.profiler) and held
+    CUDA events, each kernel's device time by torch.profiler; K2's device
+    time with and without its export by CUDA events around calls queued
+    behind a device sleep) and held
     against the plain interval with autograd there; last the training loop's
     full-sequence eval (1 env, K1, no gradient), its launch count read, and
     K1 held against the plain rollout on that eval's inputs;
@@ -55,18 +59,20 @@ Phases (any failure exits non-zero):
     torch.profiler) and held against plain, and a whole rep held against
     plain on 64 envs; train, 4096 envs x 10 intervals of 33 substeps, the same
     way (exactly 10 K2, K3 and reduction launches per rep, finite loss,
-    finite non-zero gradients), K2 values and K3 gradients (every env, and
+    finite non-zero gradients), K2's device time with and without its
+    export, K2 values and K3 gradients (every env, and
     the env reduction over the 4096 envs' partials) at the plain
     linearization on the first and the last interval's own inputs, then
     the same workload at 8 envs against
     the plain version on the CPU; last K2 values and K3 gradients of one
     83-substep interval (the 24 Hz case) at E=256 at the plain
     linearization point;
- then a line quoting (not measuring) each kernel's time before the
-    warp-per-env redesign of K3 and K4, a ``kernels`` JSON line (``ms`` the
+ then a line quoting (not measuring) each kernel's wrapper time before
+    its warp-per-env redesign, a ``kernels`` JSON line (``ms`` the
     wrapper's time by CUDA events, ``device_ms`` its kernels' device time by
-    torch.profiler, both measured in this run; ``design`` warp-per-env or
-    thread-per-env), the nvidia-smi line, and as the last line
+    torch.profiler, both measured in this run, ``device_launches`` the
+    launches the profiler recorded of those issued; ``design``), the
+    nvidia-smi line, and as the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX. Without a GPU, or run from a directory that
@@ -91,11 +97,12 @@ E_SMALL = 8  # envs of the bench training workload held against plain on the CPU
 # 129 CTAs, the last holding 3
 E_RAGGED = 1027
 # Quoted, not measured by this run: each kernel's wrapper time by CUDA
-# events at the main path's shapes before the warp-per-env redesign of K3
-# and K4 (this script on the thread-per-env kernels, NVIDIA H100 80GB HBM3
-# at 700 W; PERF.md's kernel table). Printed on a line of its own, never in
-# the kernels line.
-QUOTED_THREAD_PER_ENV_MS = {"soa_window": 19.643, "soa_interval_fwd": 0.810,
+# events at the main path's shapes when it ran one thread per env, before
+# its warp-per-env redesign (this script, NVIDIA H100 80GB HBM3 at 700 W;
+# PERF.md's kernel table: K1 and K2 from the last run before their
+# redesign, K3 and K4 from the last run before theirs). Printed on a line
+# of its own, never in the kernels line.
+QUOTED_THREAD_PER_ENV_MS = {"soa_window": 19.831, "soa_interval_fwd": 0.823,
                             "soa_interval_bwd": 1.850, "soa_rollout": 0.871}
 
 # Kernel vs plain tolerances (absolute). Both run fp32 on the card; the
@@ -169,6 +176,42 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def queued_ms(fn, n):
+    """Device ms per call of fn(), by CUDA events around n calls queued
+    behind a device sleep of 5e7 cycles (>= 25 ms at the H100's 1.98 GHz
+    boost clock): the host enqueues every call before the first one starts,
+    so the events time the device running them back to back, not the
+    host's pace (fn() must launch without synchronizing)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms > 15.0:
+        fail("queued_ms: enqueuing %d calls took %.1f ms of host time, near the sleep"
+             % (n, host_ms))
+    return start.elapsed_time(end) / n
+
+
+def export_share(label, di, call):
+    """K2's device time on one recorded interval call (the arguments of
+    ``di._forward``) with and without its (S,E,13,B) export, in turns, by
+    ``queued_ms``: logged with the share the export adds."""
+    bq, bqd, tgt, act, res, planes = call[:6]
+    t = [queued_ms(lambda: di._forward(bq, bqd, tgt, act, res, planes, x), 20)
+         for x in (True, False, False, True)]
+    log("%s K2 device time (CUDA events behind a device sleep, 20 calls each; export, bare, "
+        "bare, export): %s ms; the export adds %.1f %%"
+        % (label, [round(x, 4) for x in t], 100 * ((t[0] + t[3]) / (t[1] + t[2]) - 1)))
+
+
 def device_ms(fn, n, per_call):
     """Device time per call of fn()'s kernels ``per_call`` ({name part:
     launches per call}), by torch.profiler over n calls (fn ran once
@@ -177,7 +220,8 @@ def device_ms(fn, n, per_call):
     before, the profiler can drop launches; the recorded counts are logged.
     Fails when it records none. Beside the wrapper's time by CUDA events
     (``cuda_time_ms``): where a kernel is shorter than its wrapper's host
-    work, back-to-back wrapper calls measure the host's pace."""
+    work, back-to-back wrapper calls measure the host's pace. Returns (ms,
+    the recorded launches as "got of issued" per kernel)."""
     from ppr_diffphys_torch.utils import h100
 
     _, rows = h100.kernel_times(fn, n)
@@ -190,7 +234,8 @@ def device_ms(fn, n, per_call):
         total += ms / got * k
         seen[name] = "%d of %d" % (round(got * n), k * n)
     log("  device time by torch.profiler, launches recorded: %s" % json.dumps(seen))
-    return total
+    return total, ", ".join(seen.values()) if len(seen) == 1 else ", ".join(
+        "%s %s" % (k, v) for k, v in seen.items())
 
 
 def profile_steps(step, n, E, F):
@@ -540,8 +585,9 @@ def main():
     a1 = a1_builder.finalize().make_ground_contacts("hull")
     a1.joint_attach_ke, a1.joint_attach_kd = m.joint_attach_ke, m.joint_attach_kd
     t0 = time.time()
-    for mname, model in (("a1", a1), ("chain", synthetic.chain_model())):
-        q, qd, tgt, act = synthetic.window_problem(model, E_CHECK, sub, F_CHECK, seed=SEED)
+    for mname, model, Ec in (("a1", a1, E_CHECK), ("chain", synthetic.chain_model(), E_CHECK),
+                             ("chain45", synthetic.chain_model(extra_boxes=True), E_RAGGED)):
+        q, qd, tgt, act = synthetic.window_problem(model, Ec, sub, F_CHECK, seed=SEED)
         bq, bqd = eval_fk(model, torch.as_tensor(q), torch.as_tensor(qd))
         bq = synthetic.grounded(model, bq.numpy(), seed=SEED)
         state = tint.SimState(torch.as_tensor(bq, device=dev), bqd.to(dev))
@@ -550,7 +596,7 @@ def main():
         window = soa.SoaWindow(integ, m.dt, sub, F_CHECK)
         for planes in ("shared", "per_env"):
             ke, kd, mass, norm_I = synthetic.sim_params_np(
-                model, E_CHECK if planes == "per_env" else None, seed=SEED)
+                model, Ec if planes == "per_env" else None, seed=SEED)
             t = lambda x: torch.as_tensor(x, device=dev)
             I = t(norm_I) * t(mass)[..., None, None]
             params = tint.SimParams(t(mass), 1.0 / t(mass), I, torch.linalg.inv(I),
@@ -564,15 +610,15 @@ def main():
                         fail("phase 3 %s/%s: non-finite kernel output" % (mname, planes))
                 if float(out[2][..., 3:].abs().max()) < 1.0:
                     fail("phase 3 %s: no contact force: the check is vacuous" % mname)
-                check_errs("phase 3 %s/%s/%s" % (mname, planes,
-                                                 "act" if acts is not None else "no-act"),
-                           max_errs(out, ref), TOL_CHECK)
+                check_errs("phase 3 %s/%s/%s (E=%d, %d contacts)"
+                           % (mname, planes, "act" if acts is not None else "no-act", Ec,
+                              model.contact_count), max_errs(out, ref), TOL_CHECK)
         # the plain version's time at this shape is a yardstick only
         k_ms, _ = cuda_time_ms(lambda: window(state, tgt, None, params), 3)
         p_ms, _ = cuda_time_ms(
             lambda: tint.rollout(integ, params, state, tgt, None, None, m.dt, sub), 1)
         log("  phase 3 %s E=%d F=%d: soa_window %.3f ms, plain %.1f ms"
-            % (mname, E_CHECK, F_CHECK, k_ms, p_ms))
+            % (mname, Ec, F_CHECK, k_ms, p_ms))
     log("phase 3 kernel vs plain: ok (%.1f s)" % (time.time() - t0))
 
     # ---- 4. the main path ---------------------------------------------------
@@ -609,7 +655,7 @@ def main():
     prologue_ms, _ = cuda_time_ms(lambda: server.prologue(frame_start), 3)
     k1_call = lambda: server.window(state, ref_t, None, params)
     kern_ms, kout = cuda_time_ms(k1_call, 3)
-    k1_dev_ms = device_ms(k1_call, 3, {soa.KERNEL: 1})
+    k1_dev_ms, k1_rec = device_ms(k1_call, 3, {soa.KERNEL: 1})
     plain_ms, pout = cuda_time_ms(
         lambda: tint.rollout(m.integrator, params, state, ref_t, None, None, m.dt, sub), 1)
     errs = max_errs(kout, pout)
@@ -680,7 +726,7 @@ def main():
                 # such env's jump (measured 2.4e-3 for the sum of one jump)
                 if Ec == E_CHECK:
                     check_grads(label, grad_errors(gp, gk, Ec), Ec, linearized=False)
-    # K2 chained over a window reproduces K1 bit for bit (both run substep.cuh)
+    # K2 chained over a window reproduces K1 bit for bit (both run the warp substep)
     q, qd, tgt, _ = synthetic.window_problem(a1, E_CHECK, sub, F_CHECK, seed=SEED)
     bq, bqd = eval_fk(a1, torch.as_tensor(q), torch.as_tensor(qd))
     bq = synthetic.grounded(a1, bq.numpy(), seed=SEED)
@@ -780,10 +826,11 @@ def main():
     dqd = torch.as_tensor(rng.randn(6, B, E_TRAIN).astype(np.float32), device=dev)
     k2_call = lambda: di._forward(bq0, bqd0, tgt0, None, None, planes0, True)
     k2_ms, (kq, kqd, sstate) = cuda_time_ms(k2_call, 10)
-    k2_dev_ms = device_ms(k2_call, 10, {soa_grad.KERNEL_FWD: 1})
+    k2_dev_ms, k2_rec = device_ms(k2_call, 10, {soa_grad.KERNEL_FWD: 1})
+    export_share("phase 6 (E=%d)" % E_TRAIN, di, first[0])
     k3_call = lambda: di._backward(sstate, tgt0, None, None, planes0, dq, dqd)
     k3_ms, kg = cuda_time_ms(k3_call, 10)
-    k3_dev_ms = device_ms(k3_call, 10, {soa_grad.KERNEL_BWD: 1,
+    k3_dev_ms, k3_rec = device_ms(k3_call, 10, {soa_grad.KERNEL_BWD: 1,
                                          **({soa_grad.KERNEL_REDUCE: 1} if shared else {})})
 
     def plain_fwd():
@@ -887,8 +934,7 @@ def main():
             check_errs(label + " K4 values", {"q": float((out[0] - ref[0]).abs().max()),
                                               "qd": float((out[1] - ref[1]).abs().max())},
                        TOL_INTERVAL)
-            # K2 without its export runs the same substep units (substep.cuh)
-            # one thread per env; the warp-per-env K4 keeps its order of sums
+            # K2 without its export runs the same warp substep
             di = soa_grad.DiffInterval(integ, m.dt, sub, with_act=True)
             with torch.no_grad():
                 x, xd = di(x0, xd0, tgt.permute(0, 2, 1), acts.permute(0, 2, 1), None,
@@ -947,7 +993,7 @@ def main():
     # K4 alone on the main path's first-call inputs, vs plain
     k4_call = lambda: rb.kernel(work.state, rb.tgt, rb.act)
     k4_ms, k4_out = cuda_time_ms(k4_call, 10)
-    k4_dev_ms = device_ms(k4_call, 10, {soa.KERNEL_ROLLOUT: 1})
+    k4_dev_ms, k4_rec = device_ms(k4_call, 10, {soa.KERNEL_ROLLOUT: 1})
     p4_ms, p4_out = cuda_time_ms(lambda: tint.rollout_substeps(
         work.integrator, rb.kernel.params, work.state, rb.tgt, rb.act, m.dt), 1)
     k4_err = {"q": float((k4_out[0] - p4_out[0]).abs().max()),
@@ -1036,6 +1082,7 @@ def main():
     rng = np.random.RandomState(SEED + 10)
     w = (torch.as_tensor(rng.randn(7, B, E_MAIN).astype(np.float32), device=dev),
          torch.as_tensor(rng.randn(6, B, E_MAIN).astype(np.float32), device=dev))
+    export_share("phase 8 (E=%d)" % E_MAIN, tb.kernel, calls[0])
     for i in (0, tb.n_iv - 1):
         interval_at_width("phase 8 train interval %d of %d (E=%d)" % (i + 1, tb.n_iv, E_MAIN),
                           tb.kernel, calls[i], w, yardstick=True)
@@ -1106,8 +1153,9 @@ def main():
         "bound_ms": k1_roof["ms"],
         "bound_by": k1_roof["by"],
         "library_ms": None,
-        "design": "thread-per-env",
+        "design": "warp-per-env",
         "device_ms": k1_dev_ms,
+        "device_launches": k1_rec,
     }, {
         "name": soa_grad.KERNEL_FWD,
         "route": "cuda",
@@ -1120,8 +1168,9 @@ def main():
         "bound_ms": k2_roof["ms"],
         "bound_by": k2_roof["by"],
         "library_ms": None,
-        "design": "thread-per-env",
+        "design": "warp-per-env",
         "device_ms": k2_dev_ms,
+        "device_launches": k2_rec,
     }, {
         # K3's row counts its launches together with the env reduction's
         "name": soa_grad.KERNEL_BWD,
@@ -1138,6 +1187,7 @@ def main():
         "library_ms": None,
         "design": "warp-per-env",
         "device_ms": k3_dev_ms,
+        "device_launches": k3_rec,
     }, {
         "name": soa.KERNEL_ROLLOUT,
         "route": "cuda",
@@ -1152,9 +1202,11 @@ def main():
         "library_ms": None,
         "design": "warp-per-env",
         "device_ms": k4_dev_ms,
+        "device_launches": k4_rec,
     }]
-    log("quoted from PERF.md, not measured in this run: wrapper ms by CUDA events before "
-        "the warp-per-env redesign of K3 and K4 (NVIDIA H100 80GB HBM3 at 700 W): %s"
+    log("quoted from PERF.md, not measured in this run: wrapper ms by CUDA events when each "
+        "kernel ran one thread per env, each from the last run before its warp-per-env "
+        "redesign (NVIDIA H100 80GB HBM3 at 700 W): %s"
         % json.dumps(QUOTED_THREAD_PER_ENV_MS))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

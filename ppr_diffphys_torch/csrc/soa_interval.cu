@@ -6,11 +6,12 @@
 // pallas_call :473) and backward `bwd_call` (:483-535, kernel :255-407,
 // pallas_call :526), the pair under its custom_vjp (:537-565).
 //
-// - K2 `soa_interval_fwd` runs the S substeps of substep.cuh on (bq, bqd),
-//   one thread per env. When the caller needs gradients it also writes the
-//   state entering each substep to a (S, 13, B, E) buffer (the TPU kernel's
-//   `with_sr` export); a primal-only call passes no buffer and writes
-//   nothing there.
+// - K2 `soa_interval_fwd` runs the S substeps on (bq, bqd), with optional
+//   acts and residual forces and shared or per-env planes. When the caller
+//   needs gradients it also writes the state entering each substep to an
+//   (S, E, 13, B) buffer (the TPU kernel's `with_sr` export, there
+//   (S, 19, B, E)); a primal-only call passes no buffer and writes nothing
+//   there.
 // - K3 `soa_interval_bwd` sweeps j = S-1 .. 0: it reads the state entering
 //   substep j, recomputes that substep's contact and joint forces, and
 //   applies the hand-derived adjoint of integrate -> joints -> contacts (the
@@ -27,32 +28,39 @@
 //
 // What bounds them on an H100: operations (~10^4 fp32 operations per
 // env-substep forward, ~3x that backward, on ~10^2 bytes per substep of
-// targets and exported state). At training widths (512 envs) one thread
-// per env fills 16 warps of the card and leaves every unit's work serial,
-// so K3 runs one warp per env instead (substep_warp.cuh):
-// - 1-8 consecutive envs per CTA (sim/soa.py:envs_per_cta): 128 CTAs of
-//   4 warps at 512 envs, 512 of 8 at 4096.
-// - Lane l recomputes body l's forces with K4's warp force pass (contacts
-//   in chunks of 32 lanes, then joints), then runs the adjoint of body l's
-//   integration, of the joint whose child is body l and of contacts l,
-//   l+32, ... Each writes its cotangent contributions into shared-memory
-//   slots; body l's lane sums its d(state) in the thread loop's order:
-//   integration, then the joints j = 0..B-1 that touch it, then its
+// targets and exported state). Both run one warp per env on the warp
+// substep of substep_warp.cuh, 1-8 consecutive envs per CTA
+// (sim/soa.py:envs_per_cta): 128 CTAs of 4 warps at 512 envs, 512 of 8 at
+// 4096.
+// - K2 is the bench rollout K4's loop on env-innermost arrays: lane l
+//   integrates body l, evaluates the joint whose child is body l and
+//   contacts l, l+32, ... Each body's lane starts its totals at its
+//   residual forces of the substep, which come with the targets/acts
+//   through a cp.async double buffer. At each substep's start the warp
+//   copies its shared mirror of the body states, whose [k][b] order is the
+//   export's, into the export as one contiguous run of 13 x B floats (env
+//   innermost there cost K2 +62 % of device time at 4096 envs, scattered
+//   4-byte stores; this layout +9 %). Without residual forces its final
+//   state equals K4's bit for bit.
+// - K3 recomputes body l's forces with the same warp force pass, then runs
+//   the adjoint of body l's integration, of the joint whose child is body l
+//   and of contacts l, l+32, ... Each writes its cotangent contributions
+//   into shared-memory slots; body l's lane sums its d(state) in a fixed
+//   order: integration, then the joints j = 0..B-1 that touch it, then its
 //   contacts in contact order.
-// - The state entering substep j-1 and its targets/acts are fetched from
-//   the export with cp.async into a shared double buffer while substep j
-//   is computed; a CTA of consecutive envs reads whole 32-byte sectors.
+// - K3 fetches the state entering substep j-1 (one contiguous run of the
+//   export) and its targets/acts with cp.async into a shared double buffer
+//   while substep j is computed.
 // - The reduction takes one warp per plane row: lane l sums envs l, l+32,
 //   ... in ascending order and a fixed butterfly of shuffles combines the
 //   32 partials.
-// K2 keeps one thread per env and substep.cuh's loop.
 
 #include "substep_warp.cuh"
 
 namespace {
 
 struct BwdArgs {
-  const float* __restrict__ sstate;  // (S, 13, B, E) state entering each substep
+  const float* __restrict__ sstate;  // (S, E, 13, B) state entering each substep
   const float* __restrict__ dq;      // (7, B, E) cotangent of the final bq
   const float* __restrict__ dqd;     // (6, B, E)
   float* __restrict__ dbq0;          // (7, B, E)
@@ -310,6 +318,78 @@ __device__ __forceinline__ void integrate_adj(const Args& a, const Body& s, V3 t
   dF[3] = g_fo.x; dF[4] = g_fo.y; dF[5] = g_fo.z;
 }
 
+// Lanes fetch substep j's targets (and acts) of env e from (S,n_qd,E) into
+// a row: tgt (n_qd), act. Not committed.
+__device__ __forceinline__ void fetch_targets(Lane& L, const Args& a, int e, int j,
+                                              float* row) {
+  for (int d = L.lane; d < a.n_qd; d += 32) {
+    const size_t g = ((size_t)j * a.n_qd + d) * a.E + e;
+    cp_async4(row + d, a.tgt + g);
+    if (a.act) cp_async4(row + a.n_qd + d, a.act + g);
+  }
+}
+
+// ---- K2's per-lane phases ----------------------------------------------------
+
+// Lanes fetch substep s's targets/acts into row and, with residual forces,
+// body lane's six rows of them into rs [k][b] (each lane reads back only
+// what it fetched itself).
+__device__ __forceinline__ void fetch_fwd(Lane& L, const Args& a, int e, int s, float* row,
+                                          float* rs) {
+  fetch_targets(L, a, e, s, row);
+  const int b = L.lane, B = a.B;
+  if (a.res && b < B)
+    for (int k = 0; k < 6; ++k)
+      cp_async4(rs + k * B + b, a.res + (((size_t)s * 6 + k) * B + b) * a.E + e);
+  cp_async_commit();
+}
+
+// Body lane's state of env e from (7,B,E)/(6,B,E) into its registers and
+// the mirror.
+__device__ __forceinline__ void load_state_inner(Lane& L, const Args& a, int e, float* mir) {
+  const int b = L.lane, B = a.B;
+  if (b >= B) return;
+  const size_t r = (size_t)B * a.E;
+  const float* q = a.bq0 + (size_t)b * a.E + e;
+  const float* qd = a.bqd0 + (size_t)b * a.E + e;
+  L.s = {{q[3 * r], q[4 * r], q[5 * r], q[6 * r]}, {q[0], q[r], q[2 * r]},
+         {qd[0], qd[r], qd[2 * r]}, {qd[3 * r], qd[4 * r], qd[5 * r]}};
+  mirror_put(mir, b, B, L.s);
+}
+
+// Entering substep s of S: export the state entering it (the mirror, whose
+// [k][b] order is the export's), fetch substep s+1, wait for s;
+// the totals start at the residual forces (zero without them).
+__device__ __forceinline__ void enter_fwd(Lane& L, const Args& a, float* sstate, int e, int s,
+                                          int S, const WarpMem& m) {
+  const int B = a.B, RW = 2 * a.n_qd, RS = 6 * B;
+  if (sstate)
+    for (int i = L.lane; i < 13 * B; i += 32)
+      sstate[((size_t)s * a.E + e) * 13 * B + i] = m.mir[i];
+  if (s + 1 < S) fetch_fwd(L, a, e, s + 1, m.seq + ((s + 1) & 1) * RW, m.rs + ((s + 1) & 1) * RS);
+  cp_async_wait(s + 1 < S ? 1 : 0);
+  L.ft = {0.0f, 0.0f, 0.0f};
+  L.ff = {0.0f, 0.0f, 0.0f};
+  if (a.res && L.lane < B) {
+    const float* r = m.rs + (s & 1) * RS + L.lane;
+    L.ft = {r[0], r[B], r[2 * B]};
+    L.ff = {r[3 * B], r[4 * B], r[5 * B]};
+  }
+}
+
+// Body lane's final state into (7,B,E)/(6,B,E).
+__device__ __forceinline__ void store_state_inner(const Lane& L, const Args& a, int e) {
+  const int b = L.lane, B = a.B;
+  if (b >= B) return;
+  const size_t r = (size_t)B * a.E;
+  float* q = a.out_q + (size_t)b * a.E + e;
+  float* qd = a.out_qd + (size_t)b * a.E + e;
+  q[0] = L.s.t.x; q[r] = L.s.t.y; q[2 * r] = L.s.t.z;
+  q[3 * r] = L.s.q.x; q[4 * r] = L.s.q.y; q[5 * r] = L.s.q.z; q[6 * r] = L.s.q.w;
+  qd[0] = L.s.w.x; qd[r] = L.s.w.y; qd[2 * r] = L.s.w.z;
+  qd[3 * r] = L.s.v.x; qd[4 * r] = L.s.v.y; qd[5 * r] = L.s.v.z;
+}
+
 // ---- K3's per-lane phases ----------------------------------------------------
 
 // Lanes fetch the state entering substep j (13 rows of the export) into a
@@ -317,13 +397,9 @@ __device__ __forceinline__ void integrate_adj(const Args& a, const Body& s, V3 t
 __device__ __forceinline__ void fetch_substep(Lane& L, const Args& a, const BwdArgs& w, int e,
                                               int j, float* mir, float* row) {
   const int B = a.B, E = a.E;
-  for (int i = L.lane; i < 13 * B; i += 32)  // i = k * B + b: export row (j, k, b)
-    cp_async4(mir + i, w.sstate + ((size_t)j * 13 * B + i) * E + e);
-  for (int d = L.lane; d < a.n_qd; d += 32) {
-    const size_t g = ((size_t)j * a.n_qd + d) * E + e;
-    cp_async4(row + d, a.tgt + g);
-    if (a.act) cp_async4(row + a.n_qd + d, a.act + g);
-  }
+  for (int i = L.lane; i < 13 * B; i += 32)  // i = k * B + b: export (j, e, k, b)
+    cp_async4(mir + i, w.sstate + ((size_t)j * E + e) * 13 * B + i);
+  fetch_targets(L, a, e, j, row);
   cp_async_commit();
 }
 
@@ -721,32 +797,25 @@ __device__ __forceinline__ void row_partial(Lane& L, const float* x, int E) {
 
 // ---- kernels -------------------------------------------------------------
 
-__global__ void soa_interval_fwd_kernel(Args a, float* __restrict__ sstate, int S) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= a.E) return;
-  const int B = a.B, E = a.E;
-  EnvState st;
-  for (int b = 0; b < B; ++b) {
-    for (int k = 0; k < 7; ++k) st.q[b][k] = a.bq0[((size_t)k * B + b) * E + e];
-    for (int k = 0; k < 6; ++k) st.qd[b][k] = a.bqd0[((size_t)k * B + b) * E + e];
+__global__ void __launch_bounds__(32 * MAX_ENVS_PER_CTA, 2)
+soa_interval_fwd_kernel(Args a, Lists li, float* __restrict__ sstate, int S, int epc, Plan p) {
+  DYN_SHARED(sm);
+  const Consts k = stage_consts(a, li, sm, p);
+  __syncthreads();
+  const int warp = (int)(threadIdx.x >> 5);
+  const int e = (int)blockIdx.x * epc + warp;
+  if (e >= a.E) return;  // the last CTA's missing envs
+  const WarpMem m = warp_mem(sm, p, warp);
+  WARP_LANES;
+  PHASE(load_planes(L, a, e, m.pl); load_state_inner(L, a, e, m.mir);
+        fetch_fwd(L, a, e, 0, m.seq, m.rs));
+  for (int s = 0; s < S; ++s) {
+    PHASE(enter_fwd(L, a, sstate, e, s, S, m));
+    warp_forces(LANES_ARG, a, k, m, m.mir, m.seq + (s & 1) * 2 * a.n_qd);
+    PHASE(integrate_lane(L, a, k, m.pl, m.mir));
   }
-  for (int i = 0; i < S; ++i) {
-    if (sstate) {
-      for (int b = 0; b < B; ++b) {
-        for (int k = 0; k < 7; ++k)
-          sstate[(((size_t)i * 13 + k) * B + b) * E + e] = st.q[b][k];
-        for (int k = 0; k < 6; ++k)
-          sstate[(((size_t)i * 13 + 7 + k) * B + b) * E + e] = st.qd[b][k];
-      }
-    }
-    substep(a, st, e, i, false, 0, true);
-  }
-  for (int b = 0; b < B; ++b) {
-    for (int k = 0; k < 7; ++k) a.out_q[((size_t)k * B + b) * E + e] = st.q[b][k];
-    for (int k = 0; k < 6; ++k) a.out_qd[((size_t)k * B + b) * E + e] = st.qd[b][k];
-  }
+  PHASE(store_state_inner(L, a, e));
 }
-
 
 __global__ void __launch_bounds__(32 * MAX_ENVS_PER_CTA, 2)
 soa_interval_bwd_kernel(Args a, BwdArgs w, Lists li, int epc, Plan p) {
@@ -820,21 +889,34 @@ bool bad_dims(int E, int B, int C, int S) {
 extern "C" int soa_interval_plane_rows() { return N_PLANE_ROWS; }
 extern "C" int soa_interval_max_bodies() { return MAX_BODIES; }
 
+// bq0 (7,B,E), bqd0 (6,B,E), tgt/act (S,n_qd,E), res (S,6,B,E) (act, res
+// may be null), planes of lane 1 or E (*_pe); out_q (7,B,E), out_qd
+// (6,B,E), sstate (S,E,13,B) or null (no export).
 extern "C" int soa_interval_fwd_launch(
     const float* bq0, const float* bqd0, const float* tgt, const float* act,
     const float* res, const int* body_i, const float* body_f, const int* cbody,
-    const float* cf, const float* gains, int gains_pe, const float* inv_m, int inv_m_pe,
+    const float* cf, const int* adj_off, const int* adj, const int* c_off, int n_adj,
+    const float* gains, int gains_pe, const float* inv_m, int inv_m_pe,
     const float* inertia, int inertia_pe, const float* inv_inertia, int inv_inertia_pe,
     float* out_q, float* out_qd, float* sstate, int E, int B, int n_qd, int C, int S,
     float dt, float ang_decay, float gx, float gy, float gz, float attach_ke,
-    float attach_kd, int threads, void* stream) {
-  if (bad_dims(E, B, C, S) || threads < 1 || threads > 1024) return (int)cudaErrorInvalidValue;
+    float attach_kd, int envs_per_cta, void* stream) {
+  if (bad_dims(E, B, C, S) || n_adj < 0 || envs_per_cta < 1 ||
+      envs_per_cta > MAX_ENVS_PER_CTA)
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(tgt, act, res, body_i, body_f, cbody, cf, gains, gains_pe, inv_m,
                      inv_m_pe, inertia, inertia_pe, inv_inertia, inv_inertia_pe, E, B,
                      n_qd, C, dt, ang_decay, gx, gy, gz, attach_ke, attach_kd);
   a.bq0 = bq0; a.bqd0 = bqd0; a.out_q = out_q; a.out_qd = out_qd;
-  const int blocks = (E + threads - 1) / threads;
-  LAUNCH_THREADS(soa_interval_fwd_kernel, blocks, threads, stream)(a, sstate, S);
+  const Lists li = {adj_off, adj, c_off, n_adj};
+  const Plan p = make_plan(B, C, n_qd, n_adj, false, res != nullptr);
+  const int bytes = 4 * (p.cta + envs_per_cta * p.warp);
+  static bool smem_cap_set[MAX_DEVICES];
+  const int st = allow_dyn_smem(soa_interval_fwd_kernel, smem_cap_set);
+  if (st != 0) return st;
+  const int blocks = (E + envs_per_cta - 1) / envs_per_cta;
+  LAUNCH_WARPS(soa_interval_fwd_kernel, blocks, envs_per_cta, bytes, stream)(
+      a, li, sstate, S, envs_per_cta, p);
   return (int)cudaGetLastError();
 }
 
@@ -858,7 +940,7 @@ extern "C" int soa_interval_bwd_launch(
   w.sstate = sstate; w.dq = dq; w.dqd = dqd; w.dbq0 = dbq0; w.dbqd0 = dbqd0;
   w.dtgt = dtgt; w.dact = dact; w.dres = dres; w.dplanes = dplanes; w.S = S;
   const Lists li = {adj_off, adj, c_off, n_adj};
-  const Plan p = make_plan(B, C, n_qd, n_adj, true);
+  const Plan p = make_plan(B, C, n_qd, n_adj, true, false);
   const int bytes = 4 * (p.cta + envs_per_cta * p.warp);
   static bool smem_cap_set[MAX_DEVICES];
   const int st = allow_dyn_smem(soa_interval_bwd_kernel, smem_cap_set);

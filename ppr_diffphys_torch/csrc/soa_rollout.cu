@@ -7,9 +7,9 @@
 // targets and activations of substep i (no activations = zero) with zero
 // residual forces, and writes only the final state. The parameters are
 // baked in by the wrapper as shared (lane-1) planes, as the TPU kernel bakes
-// them in as constants. Its units are substep.cuh's, summed in the same
-// order, so its final state equals soa_interval_fwd's (K2) on the same
-// inputs.
+// them in as constants. It runs the warp substep of K1 and K2
+// (substep_warp.cuh), so its final state equals soa_interval_fwd's (K2) on
+// the same inputs, bit for bit.
 //
 // What bounds it on an H100: operations, not bytes. One env-substep is
 // ~1.1e4 fp32 operations (sim/soa.py:window_work) on the 2 x 18 floats of
@@ -44,33 +44,6 @@
 #include "substep_warp.cuh"
 
 namespace {
-
-// Lanes fetch row s of env e's targets (and acts) into buf: tgt (n_qd), act.
-__device__ __forceinline__ void fetch_row(Lane& L, const Args& a, int e, int s, float* buf) {
-  const size_t off = ((size_t)s * a.E + e) * a.n_qd;
-  for (int d = L.lane; d < a.n_qd; d += 32) {
-    cp_async4(buf + d, a.tgt + off + d);
-    if (a.act) cp_async4(buf + a.n_qd + d, a.act + off + d);
-  }
-  cp_async_commit();
-}
-
-// Entering substep s: fetch row s+1, wait for row s, zero the totals.
-__device__ __forceinline__ void enter(Lane& L, const Args& a, int e, int s, int S, float* seq) {
-  if (s + 1 < S) fetch_row(L, a, e, s + 1, seq + ((s + 1) & 1) * 2 * a.n_qd);
-  cp_async_wait(s + 1 < S ? 1 : 0);
-  L.ft = {0.0f, 0.0f, 0.0f};
-  L.ff = {0.0f, 0.0f, 0.0f};
-}
-
-// Body lane's state of env e from (E,B,7)/(E,B,6) into its registers and the mirror.
-__device__ __forceinline__ void load_state(Lane& L, const Args& a, int e, float* mir) {
-  if (L.lane >= a.B) return;
-  const float* q = a.bq0 + ((size_t)e * a.B + L.lane) * 7;
-  const float* qd = a.bqd0 + ((size_t)e * a.B + L.lane) * 6;
-  L.s = {ld4(q + 3), ld3(q), ld3(qd), ld3(qd + 3)};
-  mirror_put(mir, L.lane, a.B, L.s);
-}
 
 __device__ __forceinline__ void store_state(const Lane& L, const Args& a, int e) {
   if (L.lane >= a.B) return;
@@ -128,7 +101,7 @@ extern "C" int soa_rollout_launch(
   a.dt = dt; a.ang_decay = ang_decay; a.gx = gx; a.gy = gy; a.gz = gz;
   a.attach_ke = attach_ke; a.attach_kd = attach_kd;
   const Lists li = {adj_off, adj, c_off, n_adj};
-  const Plan p = make_plan(B, C, n_qd, n_adj, false);
+  const Plan p = make_plan(B, C, n_qd, n_adj, false, false);
   const int bytes = 4 * (p.cta + envs_per_cta * p.warp);
   static bool smem_cap_set[MAX_DEVICES];
   const int st = allow_dyn_smem(soa_rollout_kernel, smem_cap_set);

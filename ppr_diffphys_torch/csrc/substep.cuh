@@ -5,11 +5,8 @@
 // FIXED/REVOLUTE/COMPOUND law with attachment springs and its PD + limit
 // law, one body's symplectic Euler step.
 //
-// `substep()` runs them one thread per env (the serving window K1,
-// soa_window.cu, and the interval forward K2, soa_interval.cu), with every
-// per-body quantity in that thread's EnvState and env innermost in every
-// global array. substep_warp.cuh runs the same units one warp per env (K3,
-// K4).
+// substep_warp.cuh runs these units one warp per env, with lanes over
+// bodies, contacts and joints, for all four kernels (K1-K4).
 
 #pragma once
 
@@ -84,12 +81,15 @@ __device__ __forceinline__ float kasin(float x) {
   return katan2(x, sqrtf(fmaxf(1.0f - x * x, 1e-30f)));
 }
 
+// A launch's inputs and outputs. The state and the targets come in two
+// layouts: the caller's, env outermost (the window K1 and the bench
+// rollout K4), and env innermost (the interval kernels K2 and K3).
 struct Args {
-  const float* __restrict__ bq0;     // (7, B, E)
-  const float* __restrict__ bqd0;    // (6, B, E)
-  const float* __restrict__ tgt;     // (S, n_qd, E)
-  const float* __restrict__ act;     // (S, n_qd, E) or null (zero)
-  const float* __restrict__ res;     // (S, 6, B, E) torque,force rows, or null (zero)
+  const float* __restrict__ bq0;     // (E, B, 7) K1/K4, (7, B, E) K2
+  const float* __restrict__ bqd0;    // (E, B, 6) K1/K4, (6, B, E) K2
+  const float* __restrict__ tgt;     // (S, E, n_qd) K1/K4, (S, n_qd, E) K2/K3
+  const float* __restrict__ act;     // as tgt, or null (zero)
+  const float* __restrict__ res;     // (S, 6, B, E) torque,force rows (K2/K3), or null (zero)
   const int* __restrict__ body_i;    // (B, BODY_I)
   const float* __restrict__ body_f;  // (B, BODY_F)
   const int* __restrict__ cbody;     // (C,) body-sorted
@@ -101,11 +101,11 @@ struct Args {
   const float* __restrict__ inertia;      // (9, B, L)
   const float* __restrict__ inv_inertia;  // (9, B, L)
   int gains_pe, inv_m_pe, inertia_pe, inv_inertia_pe;
-  float* __restrict__ out_q;    // (F, 7, B, E)
-  float* __restrict__ out_qd;   // (F, 6, B, E)
-  float* __restrict__ out_grf;  // (F, 6, B, E)
-  float* __restrict__ out_jaf;  // (F, 6, B, E)
-  int E, B, n_qd, C, F, sub;
+  float* __restrict__ out_q;    // (F, E, B, 7) K1, (E, B, 7) K4, (7, B, E) K2
+  float* __restrict__ out_qd;   // (F, E, B, 6) K1, (E, B, 6) K4, (6, B, E) K2
+  float* __restrict__ out_grf;  // (F, E, B, 6) K1
+  float* __restrict__ out_jaf;  // (F, E, B, 6) K1
+  int E, B, n_qd, C, F, sub;    // F frames of sub substeps: K1
   float dt, ang_decay, gx, gy, gz, attach_ke, attach_kd;
 };
 
@@ -114,33 +114,19 @@ __device__ __forceinline__ float plane(const float* p, int pe, int row, int b,
   return pe ? p[((size_t)row * B + b) * E + e] : p[(size_t)row * B + b];
 }
 
-struct EnvState {
-  float q[MAX_BODIES][7];
-  float qd[MAX_BODIES][6];
-  float ft[MAX_BODIES][3];   // torque accumulator
-  float ff[MAX_BODIES][3];   // force accumulator
-  float grf[MAX_BODIES][6];  // post-contact snapshot (observable substeps)
-};
-
 // One body's state: orientation, origin, angular and linear velocity.
 struct Body {
   Q4 q;
   V3 t, w, v;
 };
 
-__device__ __forceinline__ Body get_body(const EnvState& s, int b) {
-  return {{s.q[b][3], s.q[b][4], s.q[b][5], s.q[b][6]},
-          {s.q[b][0], s.q[b][1], s.q[b][2]},
-          {s.qd[b][0], s.qd[b][1], s.qd[b][2]},
-          {s.qd[b][3], s.qd[b][4], s.qd[b][5]}};
-}
 __device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
 __device__ __forceinline__ Q4 ld4(const float* p) { return {p[0], p[1], p[2], p[3]}; }
 
 // ---- the substep's units ----------------------------------------------------
-// One contact, one joint, one body's integration: the thread-per-env loop
-// below and the warp-per-env substep (substep_warp.cuh) both call them, so
-// both do the same arithmetic.
+// One contact, one joint, one body's integration; the warp substep
+// (substep_warp.cuh) calls them per lane and sums their results per body in
+// a fixed order.
 
 // PD + limit law of one dof (pallas_soa.py:795-806), with the dof's gains
 // ke/kd, target tg and activation ac.
@@ -313,110 +299,6 @@ __device__ __forceinline__ void integrate_body(const Args& a, Body& s, V3 tq, V3
   s.q = r1;
   s.w = w1;
   s.v = v1;
-}
-
-// ---- one thread per env ---------------------------------------------------
-
-// Env e's gains planes and row srow of its targets and activations.
-struct EnvDrive {
-  const Args& a;
-  const int* bi;
-  int b, e;
-  size_t srow;
-  __device__ __forceinline__ float ke(int k) const {
-    return plane(a.gains, a.gains_pe, k, b, e, a.B, a.E);
-  }
-  __device__ __forceinline__ float kd(int k) const {
-    return plane(a.gains, a.gains_pe, 3 + k, b, e, a.B, a.E);
-  }
-  __device__ __forceinline__ float tg(int k) const { return a.tgt[(srow + bi[2 + k]) * a.E + e]; }
-  __device__ __forceinline__ float ac(int k) const {
-    return a.act ? a.act[(srow + bi[2 + k]) * a.E + e] : 0.0f;
-  }
-};
-
-// One substep of env e using input row s. With `obs`, writes the grf/jaf
-// observables into frame row `frame`. With `integrate` false, only the
-// forces are evaluated into st.ft/st.ff (the final-row observables).
-__device__ void substep(const Args& a, EnvState& st, int e, int s, bool obs,
-                        int frame, bool integrate) {
-  const int B = a.B, E = a.E;
-  // accumulators start at the residual body forces (zero without them)
-  for (int b = 0; b < B; ++b) {
-    for (int k = 0; k < 3; ++k) {
-      st.ft[b][k] = a.res ? a.res[(((size_t)s * 6 + k) * B + b) * E + e] : 0.0f;
-      st.ff[b][k] = a.res ? a.res[(((size_t)s * 6 + 3 + k) * B + b) * E + e] : 0.0f;
-    }
-  }
-
-  // ---- penalty ground contacts, summed per body in contact order
-  for (int c = 0; c < a.C; ++c) {
-    const int b = a.cbody[c];
-    V3 t, f;
-    contact_wrench(get_body(st, b), ld3(a.body_f + (size_t)b * BODY_F + 14),
-                   a.cf + (size_t)c * CONTACT_F, t, f);
-    st.ft[b][0] -= t.x; st.ft[b][1] -= t.y; st.ft[b][2] -= t.z;
-    st.ff[b][0] -= f.x; st.ff[b][1] -= f.y; st.ff[b][2] -= f.z;
-  }
-  if (obs) {
-    for (int b = 0; b < B; ++b) {
-      for (int k = 0; k < 3; ++k) {
-        st.grf[b][k] = st.ft[b][k];
-        st.grf[b][3 + k] = st.ff[b][k];
-      }
-    }
-  }
-
-  // ---- joints, in body order
-  const size_t srow = (size_t)s * a.n_qd;
-  for (int b = 0; b < B; ++b) {
-    const int* bi = a.body_i + (size_t)b * BODY_I;
-    const int jt = bi[1];
-    if (jt != JOINT_FIXED && jt != JOINT_REVOLUTE && jt != JOINT_COMPOUND) continue;
-    const int p = bi[0];
-    const bool hp = p >= 0;
-    const Body c = get_body(st, b);
-    V3 child_t, parent_t, fj;
-    joint_wrench(a, jt, hp, c, hp ? get_body(st, p) : c, a.body_f + (size_t)b * BODY_F,
-                 EnvDrive{a, bi, b, e, srow}, child_t, parent_t, fj);
-    st.ft[b][0] -= child_t.x; st.ft[b][1] -= child_t.y; st.ft[b][2] -= child_t.z;
-    st.ff[b][0] -= fj.x; st.ff[b][1] -= fj.y; st.ff[b][2] -= fj.z;
-    if (hp) {
-      st.ft[p][0] += parent_t.x; st.ft[p][1] += parent_t.y; st.ft[p][2] += parent_t.z;
-      st.ff[p][0] += fj.x; st.ff[p][1] += fj.y; st.ff[p][2] += fj.z;
-    }
-  }
-
-  if (obs) {
-    const size_t fo = (size_t)frame * 6;
-    for (int b = 0; b < B; ++b) {
-      for (int k = 0; k < 3; ++k) {
-        a.out_grf[((fo + k) * B + b) * E + e] = st.grf[b][k];
-        a.out_grf[((fo + 3 + k) * B + b) * E + e] = st.grf[b][3 + k];
-        a.out_jaf[((fo + k) * B + b) * E + e] = st.ft[b][k] - st.grf[b][k];
-        a.out_jaf[((fo + 3 + k) * B + b) * E + e] = st.ff[b][k] - st.grf[b][3 + k];
-      }
-    }
-  }
-  if (!integrate) return;
-
-  // ---- symplectic Euler, body by body
-  for (int b = 0; b < B; ++b) {
-    float I[9], Ii[9];
-    for (int k = 0; k < 9; ++k) {
-      I[k] = plane(a.inertia, a.inertia_pe, k, b, e, B, E);
-      Ii[k] = plane(a.inv_inertia, a.inv_inertia_pe, k, b, e, B, E);
-    }
-    Body s = get_body(st, b);
-    integrate_body(a, s, {st.ft[b][0], st.ft[b][1], st.ft[b][2]},
-                   {st.ff[b][0], st.ff[b][1], st.ff[b][2]},
-                   ld3(a.body_f + (size_t)b * BODY_F + 14),
-                   plane(a.inv_m, a.inv_m_pe, 0, b, e, B, E), I, Ii);
-    st.q[b][0] = s.t.x; st.q[b][1] = s.t.y; st.q[b][2] = s.t.z;
-    st.q[b][3] = s.q.x; st.q[b][4] = s.q.y; st.q[b][5] = s.q.z; st.q[b][6] = s.q.w;
-    st.qd[b][0] = s.w.x; st.qd[b][1] = s.w.y; st.qd[b][2] = s.w.z;
-    st.qd[b][3] = s.v.x; st.qd[b][4] = s.v.y; st.qd[b][5] = s.v.z;
-  }
 }
 
 }  // namespace

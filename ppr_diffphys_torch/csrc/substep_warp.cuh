@@ -1,6 +1,7 @@
 // One warp per env: substep.cuh's units with lanes over bodies, contacts and
-// joints, for the bench rollout K4 (soa_rollout.cu) and the interval
-// backward K3 (soa_interval.cu).
+// joints, for every kernel of the port: the serving window K1
+// (soa_window.cu), the interval forward K2 and backward K3
+// (soa_interval.cu) and the bench rollout K4 (soa_rollout.cu).
 //
 // - Lane l owns body l: its state and its torque/force totals in registers
 //   (struct Lane). It also owns the joint whose child is body l, and contact
@@ -13,14 +14,21 @@
 // - What lanes exchange goes through the warp's shared memory, with
 //   __syncwarp() between phases: a mirror of the body states, one slot per
 //   contact of the current chunk and one per joint for the wrench it
-//   produces. Each body's lane then sums its slots in substep.cuh's order:
+//   produces. Each body's lane then sums its slots in one fixed order:
 //   residual, its contacts in contact order (cbody is body-sorted, so a
 //   contiguous range c_off[b] .. c_off[b+1]), then the joints j = 0..B-1
 //   that touch it (the list adj[adj_off[b] .. adj_off[b+1]], entry 2j for
 //   the child part, taken with minus, 2j+1 for the parent part, with plus;
 //   built on the host by sim/soa.py:pack_static). No atomics: the results
-//   are deterministic and do the thread-per-env loop's arithmetic in its
-//   order.
+//   are deterministic, and the forward kernels K1, K2 and K4 give the same
+//   states bit for bit on the same inputs.
+// - The caller's layouts are read and written as they are: env outermost
+//   for K1 and K4 (a warp's env is a contiguous run), env innermost for K2
+//   and K3's state, targets and residual forces (a CTA of consecutive envs
+//   reads whole 32-byte sectors); K2's per-substep export, which K3 reads,
+//   is env outermost. The next substep's targets/acts (K2: and residual
+//   forces) are fetched with cp.async into a shared double buffer while the
+//   current one is computed.
 //
 // A warp program is written as phases: PHASE(stmts) runs stmts on every
 // lane (`L` is the lane's struct) and ends in __syncwarp(). Each phase calls
@@ -59,19 +67,19 @@
 #define DYN_SHARED(name) extern __shared__ __align__(16) float name[]
 #define LAUNCH_WARPS(kernel, grid, warps, smem, stream) \
   kernel<<<(grid), 32 * (warps), (smem), (cudaStream_t)(stream)>>>
-#define LAUNCH_THREADS(kernel, grid, threads, stream) \
-  kernel<<<(grid), (threads), 0, (cudaStream_t)(stream)>>>
 #endif
 
 namespace {
 
-// The registers of lane `lane`: body `lane`'s state and force totals; K3
-// adds the cotangents of the state after (dn) and entering (dS) a substep,
-// the reduction a partial sum.
+// The registers of lane `lane`: body `lane`'s state and force totals; K1
+// adds their post-contact snapshot (gt, gf: the ground reaction), K3 the
+// cotangents of the state after (dn) and entering (dS) a substep, the
+// reduction a partial sum.
 struct Lane {
   int lane;
   Body s;
   V3 ft, ff;
+  V3 gt, gf;
   float dn[13], dS[13];
   float acc;
 };
@@ -105,11 +113,13 @@ struct Lists {
 // part per warp. The same function sizes it at launch.
 struct Plan {
   int bi, bf, cbody, cf, adj_off, adj, c_off, cta;  // per CTA; cta = its words
-  int pl, mir, seq, cw, jw, dpl, dF, warp;          // per warp; warp = its words
+  int pl, mir, seq, rs, cw, jw, dpl, dF, warp;      // per warp; warp = its words
   int cf_smem;
 };
 
-__host__ __device__ inline Plan make_plan(int B, int C, int n_qd, int n_adj, bool adjoint) {
+// `adjoint`: K3's parts; `res`: K2's double buffer of residual forces.
+__host__ __device__ inline Plan make_plan(int B, int C, int n_qd, int n_adj, bool adjoint,
+                                          bool res) {
   Plan p;
   int o = 0;
   p.cf_smem = C <= CF_SMEM_MAX;
@@ -125,6 +135,7 @@ __host__ __device__ inline Plan make_plan(int B, int C, int n_qd, int n_adj, boo
   p.pl = w; w += N_PLANE_ROWS * B;              // planes [row][b]
   p.mir = w; w += (adjoint ? 2 : 1) * 13 * B;   // body states [k][b] (K3: double buffer)
   p.seq = w; w += 2 * 2 * n_qd;                 // double buffer of (targets, acts) rows
+  p.rs = w; w += res ? 2 * 6 * B : 0;           // double buffer of residual rows [k][b]
   p.cw = w; w += (adjoint ? 14 : 6) * CHUNK;    // contact slots [k][c - c0]
   p.jw = w; w += (adjoint ? 26 : 9) * B;        // joint slots [k][b]
   p.dpl = w; w += adjoint ? N_PLANE_ROWS * B : 0;  // plane gradients [row][b]
@@ -199,12 +210,12 @@ __device__ __forceinline__ Consts stage_consts(const Args& a, const Lists& li, f
 
 // A warp's part of the shared memory.
 struct WarpMem {
-  float *pl, *mir, *seq, *cw, *jw, *dpl, *dF;
+  float *pl, *mir, *seq, *rs, *cw, *jw, *dpl, *dF;
 };
 
 __device__ __forceinline__ WarpMem warp_mem(float* sm, const Plan& p, int warp) {
   float* w = sm + p.cta + warp * p.warp;
-  return {w + p.pl, w + p.mir, w + p.seq, w + p.cw, w + p.jw, w + p.dpl, w + p.dF};
+  return {w + p.pl, w + p.mir, w + p.seq, w + p.rs, w + p.cw, w + p.jw, w + p.dpl, w + p.dF};
 }
 
 // Body b of a mirror [k][b] (k: origin 0-2, orientation 3-6, angular 7-9,
@@ -253,6 +264,35 @@ __device__ __forceinline__ void load_planes(Lane& L, const Args& a, int e, float
     else v = plane(a.inv_inertia, a.inv_inertia_pe, r - PR_INV_INERTIA, b, e, a.B, a.E);
     pl[i] = v;
   }
+}
+
+// ---- the caller's layout: state (E,B,7)/(E,B,6), targets (S,E,n_qd) (K1, K4)
+
+// Lanes fetch row s of env e's targets (and acts) into buf: tgt (n_qd), act.
+__device__ __forceinline__ void fetch_row(Lane& L, const Args& a, int e, int s, float* buf) {
+  const size_t off = ((size_t)s * a.E + e) * a.n_qd;
+  for (int d = L.lane; d < a.n_qd; d += 32) {
+    cp_async4(buf + d, a.tgt + off + d);
+    if (a.act) cp_async4(buf + a.n_qd + d, a.act + off + d);
+  }
+  cp_async_commit();
+}
+
+// Entering substep s of S: fetch row s+1, wait for row s, zero the totals.
+__device__ __forceinline__ void enter(Lane& L, const Args& a, int e, int s, int S, float* seq) {
+  if (s + 1 < S) fetch_row(L, a, e, s + 1, seq + ((s + 1) & 1) * 2 * a.n_qd);
+  cp_async_wait(s + 1 < S ? 1 : 0);
+  L.ft = {0.0f, 0.0f, 0.0f};
+  L.ff = {0.0f, 0.0f, 0.0f};
+}
+
+// Body lane's state of env e from (E,B,7)/(E,B,6) into its registers and the mirror.
+__device__ __forceinline__ void load_state(Lane& L, const Args& a, int e, float* mir) {
+  if (L.lane >= a.B) return;
+  const float* q = a.bq0 + ((size_t)e * a.B + L.lane) * 7;
+  const float* qd = a.bqd0 + ((size_t)e * a.B + L.lane) * 6;
+  L.s = {ld4(q + 3), ld3(q), ld3(qd), ld3(qd + 3)};
+  mirror_put(mir, L.lane, a.B, L.s);
 }
 
 // Contact c0 + lane's wrench into its slot [k][lane]: torque 0-2, force 3-5.
@@ -345,18 +385,30 @@ __device__ __forceinline__ void integrate_lane(Lane& L, const Args& a, const Con
 
 // ---- warp functions ---------------------------------------------------------
 
-// One substep's forces onto each lane's totals (which hold the residual
-// forces or zero): contacts chunk by chunk, then joints. Reads the bodies
-// from `mir` and the targets/acts from `row`.
-__device__ __forceinline__ void warp_forces(LANES, const Args& a, const Consts& k,
-                                            const WarpMem& w, const float* mir,
-                                            const float* row) {
+// One substep's contact forces onto each lane's totals (which hold the
+// residual forces or zero), chunk by chunk, reading the bodies from `mir`.
+__device__ __forceinline__ void warp_contacts(LANES, const Args& a, const Consts& k,
+                                              const WarpMem& w, const float* mir) {
   for (int c0 = 0; c0 < a.C; c0 += CHUNK) {
     PHASE(contact_slot(L, a, k, mir, w.cw, c0));
     PHASE(contact_sum(L, a, k, w.cw, c0));
   }
+}
+
+// Then its joint forces, with the targets/acts of `row`.
+__device__ __forceinline__ void warp_joints(LANES, const Args& a, const Consts& k,
+                                            const WarpMem& w, const float* mir,
+                                            const float* row) {
   PHASE(joint_slot(L, a, k, w.pl, mir, row, w.jw));
   PHASE(joint_sum(L, a, k, w.jw));
+}
+
+// One substep's forces: contacts, then joints.
+__device__ __forceinline__ void warp_forces(LANES, const Args& a, const Consts& k,
+                                            const WarpMem& w, const float* mir,
+                                            const float* row) {
+  warp_contacts(LANES_ARG, a, k, w, mir);
+  warp_joints(LANES_ARG, a, k, w, mir, row);
 }
 
 }  // namespace

@@ -127,9 +127,10 @@ class RolloutServer:
             parts = [self._per_env_prologue(c) for c in torch.split(fs, PER_ENV_CHUNK)]
             body_q, body_qd, queried_ja = (torch.cat(p, 0) for p in zip(*parts))
         E, S = queried_ja.shape[:2]
+        # (S, E, n_qd), contiguous: the window kernel reads it as it is
         ref = torch.cat(
-            [torch.zeros((E, S, 6), device=self.device), queried_ja], -1
-        ).transpose(0, 1)  # (S, E, n_qd)
+            [torch.zeros((S, E, 6), device=self.device), queried_ja.transpose(0, 1)], -1
+        )
         return SimState(body_q, body_qd), ref
 
     @torch.no_grad()

@@ -485,14 +485,15 @@ def interval(integrator: SemiImplicitIntegrator, dt: float, bq, bqd, tgt, act, r
     bq (7,B,E), bqd (6,B,E), tgt (S,n_qd,E), act (S,n_qd,E) or None (zero),
     res (S,6,B,E) [torque, force] or None (zero), and the four parameter
     planes. Returns (bq', bqd'); with ``export``, also the state entering
-    each substep, detached, in K2's export layout (S,13,B,E)."""
+    each substep, detached, in K2's export layout (S,E,13,B): q then qd,
+    each [k][b]."""
     E = bq.shape[-1]
     params, gains3 = plane_params(gains, inv_m, inertia, inv_inertia, E)
     state = SimState(bq.permute(2, 1, 0), bqd.permute(2, 1, 0))
     entries = []
     for i in range(tgt.shape[0]):
         if export:
-            entries.append(torch.cat([state.body_q, state.body_qd], -1).detach().permute(2, 1, 0))
+            entries.append(torch.cat([state.body_q, state.body_qd], -1).detach().transpose(1, 2))
         state = integrator.step_only(
             params, state, tgt[i].T,
             None if act is None else act[i].T,

@@ -17,7 +17,8 @@ counterpart of ``ppr_diffphys_tpu/sim/pallas_soa.py`` (``build_soa_static``,
   wrapper, with the parameters baked in as lane-1 planes: CPU tensors take
   ``integrator.rollout_substeps``; CUDA tensors launch
   ``csrc/soa_rollout.cu`` or raise.
-- :func:`envs_per_cta` sizes the CTAs of the warp-per-env kernels (K3, K4).
+- :func:`envs_per_cta` sizes the CTAs of the kernels, which all run one
+  warp per env (``csrc/substep_warp.cuh``).
 """
 
 from __future__ import annotations
@@ -41,10 +42,9 @@ from .integrator import (
 KERNEL = "soa_window"
 KERNEL_ROLLOUT = "soa_rollout"
 TRACED_NAMES = ("gains", "inv_m", "inertia", "inv_inertia")
-THREADS_PER_BLOCK = 32  # the thread-per-env kernels (K1, K2)
-# The warp-per-env kernels (K3, K4) hold 1, 2, 4 or 8 consecutive envs per
-# CTA, one per warp. MIN_CTAS is the largest power of two not above the
-# H100's 132 SMs, so that power-of-two widths (512, 4096) give whole CTAs.
+# The kernels hold 1, 2, 4 or 8 consecutive envs per CTA, one per warp.
+# MIN_CTAS is the largest power of two not above the H100's 132 SMs, so
+# that power-of-two widths (512, 4096) give whole CTAs.
 ENVS_PER_CTA = (8, 4, 2, 1)
 MIN_CTAS = 128
 
@@ -107,13 +107,12 @@ def pack_static(static: dict) -> dict:
     lower/upper/ke/kd; ``cbody`` (C,) int32; ``cf`` (C,8) f32 = point,
     dist, ke, kd, kf, mu.
 
-    For the warp-per-env kernels (csrc/substep_warp.cuh), the per-body
-    lists each body's lane sums in the thread loop's order: ``c_off``
-    (B+1,) int32, body b's contacts are c_off[b] .. c_off[b+1] (cbody is
-    body-sorted); ``adj_off`` (B+1,) and ``adj`` int32, body b's joint
-    wrenches are adj[adj_off[b] .. adj_off[b+1]], joints in body order,
-    2j for joint j's child part (body b is its child) and 2j+1 for its
-    parent part."""
+    The per-body lists each body's lane sums in a fixed order
+    (csrc/substep_warp.cuh): ``c_off`` (B+1,) int32, body b's contacts are
+    c_off[b] .. c_off[b+1] (cbody is body-sorted); ``adj_off`` (B+1,) and
+    ``adj`` int32, body b's joint wrenches are adj[adj_off[b] ..
+    adj_off[b+1]], joints in body order, 2j for joint j's child part (body
+    b is its child) and 2j+1 for its parent part."""
     body_i = torch.cat(
         [static["parent"][:, None], static["joint_type"][:, None], static["dof_idx"]], 1
     )
@@ -175,7 +174,7 @@ def window_work(model, E: int, substeps: int, n_frames: int) -> dict:
     """Bytes the window must move and fp32 operations it must do, for the
     roofline bound of the kernel (each input read once, each output written
     once; shared parameter planes, no acts, as serving calls it). Operation
-    counts per unit are counted by hand from csrc/soa_window.cu (an FMA
+    counts per unit are counted by hand from csrc/substep.cuh (an FMA
     counts 2; sqrt, division, sin and cos count 1 each, a lower bound on
     their cost)."""
     B, C, n_qd = model.n_links, model.contact_count, model.n_qd
@@ -206,34 +205,26 @@ def ptr(t):
 class PackedConsts:
     """A wrapper's packed per-model constants (``pack_static(soa_static(
     model))``), built once per device and kept alive here, with their
-    argument lists. ``ptrs(dev)`` gives the kernels' four constant
-    arguments: body_i, body_f, cbody, cf; ``warp_ptrs(dev)`` adds the
-    per-body lists of the warp-per-env kernels: adj_off, adj, c_off and the
-    length of adj."""
+    argument list. ``warp_ptrs(dev)`` gives the kernels' constant
+    arguments: body_i, body_f, cbody, cf, the per-body lists adj_off, adj,
+    c_off and the length of adj."""
 
     def __init__(self, model):
         self.model = model
-        self._by_dev = {}  # str(dev) -> (packed tensors, ptrs, warp_ptrs)
+        self._by_dev = {}  # str(dev) -> (packed tensors, pointer list)
 
-    def _entry(self, dev) -> tuple:
+    def warp_ptrs(self, dev) -> list:
         key = str(dev)
         if key not in self._by_dev:
             c = pack_static(soa_static(self.model, dev))
-            base = [ptr(c[n]) for n in ("body_i", "body_f", "cbody", "cf")]
-            warp = base + [ptr(c[n]) for n in ("adj_off", "adj", "c_off")] + [
-                int(c["adj"].numel())]
-            self._by_dev[key] = (c, base, warp)
-        return self._by_dev[key]
-
-    def ptrs(self, dev) -> list:
-        return self._entry(dev)[1]
-
-    def warp_ptrs(self, dev) -> list:
-        return self._entry(dev)[2]
+            args = [ptr(c[n]) for n in ("body_i", "body_f", "cbody", "cf", "adj_off", "adj",
+                                        "c_off")] + [int(c["adj"].numel())]
+            self._by_dev[key] = (c, args)
+        return self._by_dev[key][1]
 
 
 def envs_per_cta(E: int) -> int:
-    """Envs (warps) per CTA of the warp-per-env kernels: the largest of
+    """Envs (warps) per CTA of the kernels: the largest of
     ``ENVS_PER_CTA`` whose grid of ceil(E / k) CTAs still has at least
     ``MIN_CTAS`` CTAs, else 1 (512 envs: 4, 128 CTAs; 4096: 8, 512 CTAs).
     The last CTA of a ragged E holds the remaining envs."""
@@ -251,11 +242,10 @@ def sim_args(model, dt: float) -> list:
             float(model.joint_attach_ke), float(model.joint_attach_kd)]
 
 
-def launch_tail(model, dt: float, dev, per_block: int) -> list:
-    """The arguments every launch entry point ends with: ``sim_args``,
-    ``per_block`` (threads per block of a thread-per-env kernel, envs per
-    CTA of a warp-per-env one) and the stream."""
-    return sim_args(model, dt) + [int(per_block), torch.cuda.current_stream(dev).cuda_stream]
+def launch_tail(model, dt: float, dev, E: int) -> list:
+    """The arguments every launch entry point ends with: ``sim_args``, the
+    envs per CTA for E envs and the stream."""
+    return sim_args(model, dt) + [envs_per_cta(E), torch.cuda.current_stream(dev).cuda_stream]
 
 
 def check_bodies(name: str, B: int, max_b: int):
@@ -288,20 +278,6 @@ def check_inputs(name: str, model, state: SimState, joint_targets, joint_acts, S
                              % (p.shape[-1], E))
 
 
-def env_innermost(name: str, model, state: SimState, joint_targets, joint_acts, S: int,
-                  planes) -> tuple:
-    """Checks a launch's inputs (``check_inputs``) and lays them out env
-    innermost for the thread-per-env window kernel, so that a warp reads 32
-    consecutive floats: bq (7,B,E), bqd (6,B,E), tgt and act (S,n_qd,E)
-    (act None stays None)."""
-    check_inputs(name, model, state, joint_targets, joint_acts, S, planes)
-    bq = state.body_q.permute(2, 1, 0).contiguous()
-    bqd = state.body_qd.permute(2, 1, 0).contiguous()
-    tgt = joint_targets.permute(0, 2, 1).contiguous()
-    act = None if joint_acts is None else joint_acts.permute(0, 2, 1).contiguous()
-    return bq, bqd, tgt, act
-
-
 def _kernel_lib():
     """The built soa_window library with its C signatures declared."""
     lib = kbuild.load(KERNEL)
@@ -310,11 +286,12 @@ def _kernel_lib():
     lib.soa_window_max_bodies.restype = I
     lib.soa_window_launch.argtypes = (
         [P] * 8  # bq0 bqd0 tgt act body_i body_f cbody cf
+        + [P] * 3 + [I]  # adj_off adj c_off, len(adj)
         + [P, I] * 4  # gains inv_m inertia inv_inertia, each with its per-env flag
         + [P] * 4  # out_q out_qd out_grf out_jaf
         + [I] * 6  # E B n_qd C F sub
         + [Fl] * 7  # dt ang_decay gx gy gz attach_ke attach_kd
-        + [I, P]  # threads per block, stream
+        + [I, P]  # envs per CTA, stream
     )
     lib.soa_window_launch.restype = I
     return lib
@@ -331,7 +308,12 @@ class SoaWindow:
     per-call input, so swapping a checkpoint needs no rebuild.
 
     CPU tensors run the plain version (``integrator.rollout``); CUDA tensors
-    launch the kernel, counted in ``self.launches``."""
+    launch ``csrc/soa_window.cu``, counted in ``self.launches``, or raise.
+    The kernel runs one warp per env, ``envs_per_cta(E)`` envs per CTA,
+    reads the state and the targets/acts in the caller's layout and writes
+    the four (F,E,B,·) outputs directly: the wrapper copies nothing
+    (``.contiguous()`` is a no-op on the server's and the eval's
+    tensors)."""
 
     def __init__(self, integrator: SemiImplicitIntegrator, dt: float,
                  substeps: int, n_frames: int):
@@ -365,28 +347,29 @@ class SoaWindow:
         lib = _kernel_lib()
         check_bodies(KERNEL, B, lib.soa_window_max_bodies())
         planes = traced_planes(model, params)
-        bq, bqd, tgt, act = env_innermost(KERNEL, model, state, joint_targets, joint_acts,
-                                          joint_targets.shape[0], planes.values())
+        check_inputs(KERNEL, model, state, joint_targets, joint_acts, joint_targets.shape[0],
+                     planes.values())
+        bq, bqd = state.body_q.contiguous(), state.body_qd.contiguous()
+        tgt = joint_targets.contiguous()
+        act = None if joint_acts is None else joint_acts.contiguous()
         dev = bq.device
-        out_q = torch.empty((F, 7, B, E), dtype=torch.float32, device=dev)
-        out_qd = torch.empty((F, 6, B, E), dtype=torch.float32, device=dev)
-        out_grf = torch.empty((F, 6, B, E), dtype=torch.float32, device=dev)
-        out_jaf = torch.empty((F, 6, B, E), dtype=torch.float32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        out_q = torch.empty((F, E, B, 7), **f32)
+        out_qd, out_grf, out_jaf = (torch.empty((F, E, B, 6), **f32) for _ in range(3))
 
         pe = lambda n: int(planes[n].shape[-1] == E and E > 1)
         status = lib.soa_window_launch(
-            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *self._consts.ptrs(dev),
+            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *self._consts.warp_ptrs(dev),
             ptr(planes["gains"]), pe("gains"), ptr(planes["inv_m"]), pe("inv_m"),
             ptr(planes["inertia"]), pe("inertia"),
             ptr(planes["inv_inertia"]), pe("inv_inertia"),
             ptr(out_q), ptr(out_qd), ptr(out_grf), ptr(out_jaf),
             E, B, model.n_qd, model.contact_count, F, self.sub,
-            *launch_tail(model, self.dt, dev, THREADS_PER_BLOCK),
+            *launch_tail(model, self.dt, dev, E),
         )
         kbuild.check(status, KERNEL)
         self.launches += 1
-        aos = lambda x: x.permute(0, 3, 2, 1).contiguous()  # (F,·,B,E) -> (F,E,B,·)
-        return aos(out_q), aos(out_qd), aos(out_grf), aos(out_jaf)
+        return out_q, out_qd, out_grf, out_jaf
 
 
 def rollout_work(model, E: int, substeps: int) -> dict:
@@ -492,7 +475,7 @@ class SoaRollout:
             ptr(pl["gains"]), ptr(pl["inv_m"]), ptr(pl["inertia"]), ptr(pl["inv_inertia"]),
             ptr(out_q), ptr(out_qd),
             E, B, model.n_qd, model.contact_count, self.S,
-            *launch_tail(model, self.dt, dev, envs_per_cta(E)),
+            *launch_tail(model, self.dt, dev, E),
         )
         kbuild.check(status, KERNEL_ROLLOUT)
         self.launches += 1

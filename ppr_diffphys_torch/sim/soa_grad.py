@@ -30,8 +30,8 @@ import torch
 
 from ..csrc import build as kbuild
 from .integrator import SemiImplicitIntegrator, SimParams, SimState, interval
-from .soa import (THREADS_PER_BLOCK, TRACED_NAMES, PackedConsts, envs_per_cta, ptr, sim_args,
-                  traced_planes, window_work)
+from .soa import (TRACED_NAMES, PackedConsts, envs_per_cta, ptr, sim_args, traced_planes,
+                  window_work)
 
 KERNEL = "soa_interval"
 KERNEL_FWD, KERNEL_BWD, KERNEL_REDUCE = (
@@ -48,13 +48,13 @@ def _kernel_lib():
     consts = [P] * 4  # body_i body_f cbody cf
     lists = [P] * 3 + [I]  # adj_off adj c_off, len(adj)
     planes = [P, I] * 4  # gains inv_m inertia inv_inertia, each with its per-env flag
-    # E B n_qd C S; dt ang_decay g attach; threads (K2) or envs per CTA (K3), stream
+    # E B n_qd C S; dt ang_decay g attach; envs per CTA, stream
     tail = [I] * 5 + [Fl] * 7 + [I, P]
     for fn in (lib.soa_interval_plane_rows, lib.soa_interval_max_bodies):
         fn.argtypes = []
         fn.restype = I
-    lib.soa_interval_fwd_launch.argtypes = (
-        [P] * 5 + consts + planes + [P] * 3 + tail)  # bq0 bqd0 tgt act res | out_q out_qd sstate
+    lib.soa_interval_fwd_launch.argtypes = (  # bq0 bqd0 tgt act res | out_q out_qd sstate
+        [P] * 5 + consts + lists + planes + [P] * 3 + tail)
     lib.soa_interval_fwd_launch.restype = I
     lib.soa_interval_bwd_launch.argtypes = (
         [P] * 4 + consts + lists + planes + [P] * 8 + tail)  # sstate tgt act res | dq dqd dbq0 dbqd0 dtgt dact dres dplanes
@@ -79,7 +79,7 @@ class _IntervalFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dq, dqd):
         sstate, tgt, act, res, *planes = ctx.saved_tensors
-        B, E = sstate.shape[2], sstate.shape[3]
+        E, B = sstate.shape[1], sstate.shape[3]
         if dq is None:
             dq = sstate.new_zeros((7, B, E))
         if dqd is None:
@@ -129,8 +129,7 @@ class DiffInterval:
     # ---- kernel launches ---------------------------------------------------
     def _common(self, tgt, act, res, planes, E):
         """Checked, contiguous inputs and the argument groups shared by K2
-        and K3 (the tail stops before threads per block or envs per CTA,
-        and the stream)."""
+        and K3 (the tail stops before the envs per CTA and the stream)."""
         model = self.model
         B, n_qd, S = model.n_links, model.n_qd, self.S
         dev = tgt.device
@@ -159,6 +158,11 @@ class DiffInterval:
         return out, pl, plane_args, tail
 
     def _forward(self, bq, bqd, tgt, act, res, planes, export):
+        """K2 (one warp per env, ``envs_per_cta(E)`` envs per CTA) on the
+        state (7,B,E)/(6,B,E), targets/acts (S,n_qd,E) and residual forces
+        (S,6,B,E) (acts and res may be None: zero): returns the final state
+        and, with ``export``, the (S,E,13,B) state entering each substep
+        that K3 reads (else None)."""
         B = self.model.n_links
         E = bq.shape[-1]
         dev = bq.device
@@ -175,23 +179,23 @@ class DiffInterval:
         bq, bqd = bq.contiguous(), bqd.contiguous()
         out_q = torch.empty((7, B, E), dtype=torch.float32, device=dev)
         out_qd = torch.empty((6, B, E), dtype=torch.float32, device=dev)
-        sstate = (torch.empty((self.S, 13, B, E), dtype=torch.float32, device=dev)
+        sstate = (torch.empty((self.S, E, 13, B), dtype=torch.float32, device=dev)
                   if export else None)
         status = lib.soa_interval_fwd_launch(
             ptr(bq), ptr(bqd), ptr(seq["tgt"]), ptr(seq["act"]), ptr(seq["res"]),
-            *self._consts.ptrs(dev), *plane_args, ptr(out_q), ptr(out_qd), ptr(sstate), *tail,
-            THREADS_PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
+            *self._consts.warp_ptrs(dev), *plane_args, ptr(out_q), ptr(out_qd), ptr(sstate),
+            *tail, envs_per_cta(E), torch.cuda.current_stream(dev).cuda_stream)
         kbuild.check(status, KERNEL_FWD)
         self.launches[KERNEL_FWD] += 1
         return out_q, out_qd, sstate
 
     def _backward(self, sstate, tgt, act, res, planes, dq, dqd):
         """K3 (one warp per env, ``envs_per_cta(E)`` envs per CTA) on the
-        (S,13,B,E) export and the cotangents dq (7,B,E), dqd (6,B,E), then,
+        (S,E,13,B) export and the cotangents dq (7,B,E), dqd (6,B,E), then,
         for shared planes, the env reduction (one warp per plane row).
         Returns (dbq, dbqd, dtgt, dact or None, dres or None, [the four plane
         gradients in the planes' shapes])."""
-        B, E = sstate.shape[2], sstate.shape[3]
+        E, B = sstate.shape[1], sstate.shape[3]
         dev = sstate.device
         lib = _kernel_lib()
         seq, pl, plane_args, tail = self._common(tgt, act, res, planes, E)
@@ -313,7 +317,7 @@ def interval_work(model, E: int, substeps: int, n_active_contacts: float = None)
     shared planes, no acts or residual forces, as training calls them).
 
     K2 (with the per-substep state export): the state, targets, planes and
-    constants in; the state and the (S,13,B,E) export out. Operations: the
+    constants in; the state and the (S,E,13,B) export out. Operations: the
     forward substep count of ``window_work``.
 
     K3: the export, targets, cotangents, planes and constants in; d(state),
@@ -354,17 +358,17 @@ def interval_work(model, E: int, substeps: int, n_active_contacts: float = None)
 
 def active_contacts(model, sstate) -> float:
     """Number of (substep, env, contact) triples whose contact point is below
-    the ground in a K2 state export (S,13,B,E): the contacts K3's adjoint
+    the ground in a K2 state export (S,E,13,B): the contacts K3's adjoint
     does work for."""
     with torch.no_grad():
         cb = torch.as_tensor(np.asarray(model.contact_body, np.int64), device=sstate.device)
         pt = torch.as_tensor(np.asarray(model.contact_point, np.float32), device=sstate.device)
         dist = torch.as_tensor(np.asarray(model.contact_dist, np.float32), device=sstate.device)
-        t = sstate[:, 0:3][:, :, cb]  # (S,3,C,E)
-        q = sstate[:, 3:7][:, :, cb]
-        u, w = q[:, 0:3], q[:, 3:4]
-        v = pt.T[None, :, :, None]
-        uv = torch.linalg.cross(u, v.expand_as(u), dim=1)
-        rot = v + 2.0 * (w * uv + torch.linalg.cross(u, uv, dim=1))
-        y = rot[:, 1] + t[:, 1] - dist[None, :, None]
+        t = sstate[:, :, 0:3][..., cb]  # (S,E,3,C)
+        q = sstate[:, :, 3:7][..., cb]
+        u, w = q[:, :, 0:3], q[:, :, 3:4]
+        v = pt.T[None, None]
+        uv = torch.linalg.cross(u, v.expand_as(u), dim=2)
+        rot = v + 2.0 * (w * uv + torch.linalg.cross(u, uv, dim=2))
+        y = rot[:, :, 1] + t[:, :, 1] - dist
         return float((y < 0).sum())

@@ -61,8 +61,9 @@ def test_library_path_tracks_the_source():
 
 
 def test_library_path_tracks_the_shared_header(tmp_path, monkeypatch):
-    """An edit to a shared header (csrc/substep.cuh, or csrc/substep_warp.cuh
-    of the warp-per-env K3 and K4) renames (so rebuilds) every library."""
+    """An edit to a shared header (csrc/substep.cuh, or csrc/substep_warp.cuh,
+    which every kernel's source includes) renames (so rebuilds) every
+    library."""
     for f in kbuild.SRC_DIR.iterdir():
         if f.suffix in (".cu", ".cuh"):
             (tmp_path / f.name).write_bytes(f.read_bytes())
@@ -227,7 +228,7 @@ def test_interval_kernels_match_plain(name, per_env):
 @pytest.mark.cuda
 def test_interval_chain_equals_window_bitwise():
     """K2 chained over the intervals of a window gives K1's frame states bit
-    for bit: both run substep.cuh."""
+    for bit: both run the warp substep (csrc/substep_warp.cuh)."""
     _need_gpu()
     dev = torch.device("cuda")
     model = _model("a1")
@@ -271,8 +272,8 @@ def test_cuda_interval_raises_without_its_library(monkeypatch):
 def test_rollout_kernel_matches_plain(name):
     """K4 against its plain version (integrator.rollout_substeps) on the
     card, 33 substeps with penetrating contacts, random and no acts; its
-    final state equals K2's without export bit for bit (the warp-per-env K4
-    runs substep.cuh's units in the thread-per-env K2's order of sums).
+    final state equals K2's without export bit for bit (both run the warp
+    substep).
     Tolerance as the window's after 33 substeps."""
     _need_gpu()
     dev = torch.device("cuda")
@@ -376,3 +377,61 @@ def test_interval_backward_many_contacts_ragged(per_env):
         assert torch.isfinite(b).all(), n
         assert float(rel(a, b).max()) <= 1e-4, n
     assert di.launches["soa_interval_reduce"] == (0 if per_env else 1)
+
+
+@pytest.mark.cuda
+def test_window_kernel_many_contacts_ragged():
+    """K1 with 45 contacts (two chunks of 32 lanes) at 1027 envs (a ragged
+    last CTA) over F=3 frames against its plain version, tolerances as
+    test_window_kernel_matches_plain; its frame states equal K2 chained
+    over the window's intervals bit for bit."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model("chain45")
+    F = 3
+    state, tgt, act, params = _inputs(model, E_RAGGED, F, True, dev)
+    integ = tint.SemiImplicitIntegrator(model)
+    window = soa.SoaWindow(integ, DT, SUB, F)
+    out = window(state, tgt, act, params)
+    ref = tint.rollout(integ, params, state, tgt, act, None, DT, SUB)
+    for a, b, tol in zip(out, ref, (1e-5, 5e-3, 0.1, 0.5)):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    di = soa_grad.DiffInterval(integ, DT, SUB, with_act=True)
+    planes = soa.traced_planes(model, params)
+    bq, bqd = state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0)
+    tp, ap = tgt.permute(0, 2, 1).contiguous(), act.permute(0, 2, 1).contiguous()
+    with torch.no_grad():
+        for f in range(F - 1):
+            sl = slice(f * SUB, (f + 1) * SUB)
+            bq, bqd = di(bq, bqd, tp[sl], ap[sl], None, *(planes[n] for n in soa.TRACED_NAMES))
+            assert torch.equal(bq.permute(2, 1, 0), out[0][f + 1])
+            assert torch.equal(bqd.permute(2, 1, 0), out[1][f + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("a1", 64, False), ("chain45", E_RAGGED, True)],
+                         ids=["a1-shared", "chain45-ragged-per_env"])
+def test_interval_forward_export_matches_plain(case):
+    """K2 with acts and residual forces against the plain
+    ``interval(export=True)``: the final state and every exported substep
+    entry state (q rows within 1e-5, qd rows within 5e-3, as the window's
+    values); without the export the final state is the same bit for bit."""
+    _need_gpu()
+    name, E, per_env = case
+    dev = torch.device("cuda")
+    model = _model(name)
+    state, tgt, act, res, params, _ = _interval_case(model, E, per_env, dev)
+    integ = tint.SemiImplicitIntegrator(model)
+    di = soa_grad.DiffInterval(integ, DT, SUB, with_res=True, with_act=True)
+    planes = soa.traced_planes(model, params)
+    pl = [planes[n] for n in soa.TRACED_NAMES]
+    bq, bqd, tp, ap, _ = (x.detach() for x in _state_inputs(state, tgt, act, res))
+    rq, rqd, rs = tint.interval(integ, DT, bq, bqd, tp, ap, res, *pl, export=True)
+    q, qd, sst = di._forward(bq, bqd, tp, ap, res, pl, True)
+    for x, y, tol in ((q, rq, 1e-5), (qd, rqd, 5e-3), (sst[:, :, :7], rs[:, :, :7], 1e-5),
+                      (sst[:, :, 7:], rs[:, :, 7:], 5e-3)):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=0, atol=tol)
+    q2, qd2, none = di._forward(bq, bqd, tp, ap, res, pl, False)
+    assert none is None and torch.equal(q2, q) and torch.equal(qd2, qd)

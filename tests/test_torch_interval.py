@@ -180,9 +180,9 @@ def test_plane_params_match_sim_params(models):
 
 
 def test_interval_export_is_the_state_entering_each_substep(models):
-    """The plain interval's export has K2's (S,13,B,E) layout: row j is the
-    state (q then qd) that the first j substeps reach; it is detached and
-    leaves the outputs as they were."""
+    """The plain interval's export has K2's (S,E,13,B) layout: row j is the
+    state (q then qd, each [k][b]) that the first j substeps reach; it is
+    detached and leaves the outputs as they were."""
     _, (jm, tm) = models
     args, norm_I, _, _ = _problem(jm, True, seed=6)
     ke, kd, mass, tgt, act, res, bq0, bqd0 = (torch.as_tensor(a) for a in args)
@@ -194,13 +194,13 @@ def test_interval_export_is_the_state_entering_each_substep(models):
     bqd = bqd0.permute(2, 1, 0)
     seq = (tgt[:SUB].permute(0, 2, 1), act[:SUB].permute(0, 2, 1), res[:SUB].permute(0, 3, 2, 1))
     q, qd, sst = tint.interval(integ, DT, bq, bqd, *seq, *planes, export=True)
-    assert sst.shape == (SUB, 13, tm.n_links, E) and not sst.requires_grad
+    assert sst.shape == (SUB, E, 13, tm.n_links) and not sst.requires_grad
     q0, qd0 = tint.interval(integ, DT, bq, bqd, *seq, *planes)
     assert torch.equal(q, q0) and torch.equal(qd, qd0) and q.requires_grad
     for j in range(SUB):
         head = tuple(x[:j] for x in seq)
         qj, qdj = tint.interval(integ, DT, bq, bqd, *head, *planes) if j else (bq, bqd)
-        assert torch.equal(sst[j], torch.cat([qj, qdj], 0).detach())
+        assert torch.equal(sst[j], torch.cat([qj, qdj], 0).detach().permute(2, 0, 1))
 
 
 def test_rollout_soa_rejects_live_joint_anchors(models):
@@ -215,7 +215,7 @@ def test_rollout_soa_rejects_live_joint_anchors(models):
 def test_interval_work_counts():
     """The roofline inputs chip_smoke.py reports for K2 and K3 at the
     training shapes: K2 does the window's per-substep work and writes the
-    (S,13,B,E) export; K3 does more work than K2 and reads the export."""
+    (S,E,13,B) export; K3 does more work than K2 and reads the export."""
     tm = H.a1_model(tbuilder, timport)
     w = soa_grad.interval_work(tm, E=512, substeps=33)
     per = tsoa.window_work(tm, 512, 33, 2)["per_env_substep"]

@@ -1,13 +1,15 @@
-"""The warp-per-env CUDA kernels (K4 in csrc/soa_rollout.cu, K3 in
-csrc/soa_interval.cu) compiled as host C++ and checked on the CPU.
+"""The port's CUDA kernels (K1 in csrc/soa_window.cu, K2 and K3 in
+csrc/soa_interval.cu, K4 in csrc/soa_rollout.cu), all one warp per env,
+compiled as host C++ and checked on the CPU.
 
 The kernels are written as phases of per-lane functions separated by
 __syncwarp() (csrc/substep_warp.cuh). The stub header below stands in for
 cuda_runtime.h: it defines SOA_HOST_WARP and the warp macros so that one
 host thread runs a warp's 32 lanes one after another, phase by phase, and
 each launch runs its CTAs and their warps in turn. g++ builds the sources
-with -ffp-contract=off; the wrappers (``SoaRollout._launch``,
-``DiffInterval._backward``) then call the host library on CPU tensors.
+with -ffp-contract=off; the wrappers (``SoaWindow._launch``,
+``DiffInterval._forward``/``_backward``, ``SoaRollout._launch``) then call
+the host library on CPU tensors.
 
 Held against the plain PyTorch versions on a1, the FIXED/COMPOUND/REVOLUTE
 chain and the chain with 45 contacts (two chunks of 32 lanes), E=5 envs
@@ -17,9 +19,20 @@ and 2 envs per CTA (the second leaves the last CTA one env short):
 
 - K4 after 33 substeps: q within 1e-6, qd within 2e-4 (2e-5 of its
   largest entries, 10 at the velocity clamp; two fp32 orders of the same
-  arithmetic, measured up to 1.2e-7 and 1.1e-4), and equal bit for bit to the thread-per-env K2
-  (soa_interval_fwd, built from the same source): the warp substep keeps
-  the thread loop's order of sums.
+  arithmetic, measured up to 1.2e-7 and 1.1e-4), and equal bit for bit to
+  K2 without export (soa_interval_fwd): both run the same warp substep.
+- K1 over a window of F=3 frames (67 substeps): every frame row of q
+  within 1e-6 and qd within 2e-4; grf and jaf (N, N m; up to ~550 N) within
+  FORCE_TOL of the plain window's, where they carry the two trajectories'
+  rounding (jaf holds ke=16000 times a ~1e-7 q difference; measured up to
+  2.9e-4 and 3.8e-3), and within OWN_TOL of the plain force pipeline
+  evaluated at the kernel's own frame states (measured up to 6.1e-5 and
+  5.1e-4: the arithmetic of the observables alone); its frame states equal
+  bit for bit to K2 chained over the window's intervals.
+- K2 with and without its (S,E,13,B) export, with acts and residual forces,
+  shared and per-env planes: the final state and the export against the
+  plain ``interval(export=True)`` within K4's limits (q rows 1e-6, qd rows
+  2e-4).
 - K3 at the plain forward's linearization (it reads the plain interval's
   own substep states): every gradient, per-env plane partials included,
   within 1e-5 of its largest entry; for shared planes the env reduction
@@ -46,6 +59,8 @@ from ppr_diffphys_torch.sim.kinematics import eval_fk
 import port_helpers as H
 
 DT, SUB, E = 5e-4, 33, 5
+FORCE_TOL = dict(grf=2e-3, jaf=2e-2)
+OWN_TOL = dict(grf=2e-4, jaf=2e-3)
 
 STUB = r"""
 #pragma once
@@ -86,19 +101,17 @@ static inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { retu
 #define cp_async4(dst, src) (*(dst) = *(src))
 #define cp_async_commit()
 #define cp_async_wait(n)
-// a launch: CTAs in turn, and in each its warps (or threads) in turn
+// a launch: CTAs in turn, and in each its warps in turn
 template <class K> struct HostLaunch {
-  K k; unsigned grid, block, step;
+  K k; unsigned grid, block;
   template <class... A> void operator()(A... args) const {
     blockDim.x = block;
     for (blockIdx.x = 0; blockIdx.x < grid; ++blockIdx.x)
-      for (threadIdx.x = 0; threadIdx.x < block; threadIdx.x += step) k(args...);
+      for (threadIdx.x = 0; threadIdx.x < block; threadIdx.x += 32) k(args...);
   }
 };
 #define LAUNCH_WARPS(kernel, grid, warps, smem, stream) \
-  HostLaunch<decltype(&kernel)>{&kernel, (unsigned)(grid), 32u * (unsigned)(warps), 32u}
-#define LAUNCH_THREADS(kernel, grid, threads, stream) \
-  HostLaunch<decltype(&kernel)>{&kernel, (unsigned)(grid), (unsigned)(threads), 1u}
+  HostLaunch<decltype(&kernel)>{&kernel, (unsigned)(grid), 32u * (unsigned)(warps)}
 """
 
 
@@ -110,7 +123,7 @@ def host_libs(tmp_path_factory):
     d = tmp_path_factory.mktemp("warp_host")
     (d / "cuda_runtime.h").write_text(STUB)
     libs = {}
-    for name in (soa.KERNEL_ROLLOUT, soa_grad.KERNEL):
+    for name in (soa.KERNEL, soa_grad.KERNEL, soa.KERNEL_ROLLOUT):
         out = d / ("lib%s.so" % name)
         cmd = [cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-x", "c++",
                "-I", str(d), "-o", str(out), str(kbuild.SRC_DIR / (name + ".cu"))]
@@ -145,8 +158,11 @@ def _model(name):
     return synthetic.chain_model()
 
 
-def _problem(model, per_env, seed=11):
-    q, qd, tgt, act = synthetic.window_problem(model, E, SUB, 2, seed)
+def _problem(model, per_env, seed=11, rows=SUB):
+    """A grounded state of E envs, ``rows`` substeps of targets and acts
+    (S,E,n_qd), and shared or per-env parameters."""
+    F = 2 if rows <= SUB + 1 else (rows - 2) // SUB + 2
+    q, qd, tgt, act = synthetic.window_problem(model, E, SUB, F, seed)
     bq, bqd = eval_fk(model, torch.as_tensor(q), torch.as_tensor(qd))
     bq = synthetic.grounded(model, bq.numpy(), seed)
     cb = model.contact_body
@@ -159,7 +175,7 @@ def _problem(model, per_env, seed=11):
     t = torch.as_tensor
     I = t(norm_I) * t(mass)[..., None, None]
     params = tint.SimParams(t(mass), 1.0 / t(mass), I, torch.linalg.inv(I), t(ke), t(kd))
-    return tint.SimState(t(bq), bqd), t(tgt[:SUB]), t(act[:SUB]), params
+    return tint.SimState(t(bq), bqd), t(tgt[:rows]), t(act[:rows]), params
 
 
 def test_envs_per_cta_geometry():
@@ -229,6 +245,91 @@ def test_host_rollout_kernel(on_host, name, epc):
         assert torch.equal(bq.permute(2, 1, 0), out.body_q)
         assert torch.equal(bqd.permute(2, 1, 0), out.body_qd)
     assert k4.launches == 2
+
+
+def _plane_list(model, params):
+    planes = soa.traced_planes(model, params)
+    return [planes[n] for n in soa.TRACED_NAMES]
+
+
+def _inner(state, tgt, act):
+    """The state, targets and acts in the interval kernels' env-innermost
+    layout: (7,B,E), (6,B,E), (S,n_qd,E)."""
+    return (state.body_q.permute(2, 1, 0).contiguous(),
+            state.body_qd.permute(2, 1, 0).contiguous(),
+            tgt.permute(0, 2, 1).contiguous(), act.permute(0, 2, 1).contiguous())
+
+
+@pytest.mark.parametrize("epc", [1, 2])
+@pytest.mark.parametrize("name", ["a1", "chain", "chain45"])
+def test_host_window_kernel(on_host, name, epc):
+    """K1 over F=3 frames against the plain window, shared (1 env per CTA)
+    and per-env (2) planes, random and no acts; its frame states equal K2
+    chained over the window's intervals bit for bit."""
+    on_host(epc)
+    model = _model(name)
+    F = 3
+    state, tgt, act, params = _problem(model, epc == 2, rows=SUB * (F - 1) + 1)
+    integ = tint.SemiImplicitIntegrator(model)
+    window = soa.SoaWindow(integ, DT, SUB, F)
+    di = soa_grad.DiffInterval(integ, DT, SUB, with_act=True)
+    pl = _plane_list(model, params)
+    for acts in (act, None):
+        out = window._launch(state, tgt, acts, params)
+        ref = tint.rollout(integ, params, state, tgt, acts, None, DT, SUB)
+        assert all(bool(torch.isfinite(x).all()) for x in out)
+        assert float(out[2][..., 3:].abs().max()) > 1.0  # contacts push
+        for x, y, tol in zip(out, ref, (1e-6, 2e-4, FORCE_TOL["grf"], FORCE_TOL["jaf"])):
+            torch.testing.assert_close(x, y, rtol=0, atol=tol)
+        for f in range(F):
+            s = f * SUB
+            with torch.no_grad():
+                _, grf, jaf = integ.compute_forces(
+                    params, tint.SimState(out[0][f], out[1][f]), tgt[s],
+                    None if acts is None else acts[s], None)
+            torch.testing.assert_close(out[2][f], grf, rtol=0, atol=OWN_TOL["grf"])
+            torch.testing.assert_close(out[3][f], jaf, rtol=0, atol=OWN_TOL["jaf"])
+        bq, bqd, tp, ap = _inner(state, tgt, torch.zeros_like(tgt) if acts is None else acts)
+        for f in range(F - 1):
+            sl = slice(f * SUB, (f + 1) * SUB)
+            bq, bqd, _ = di._forward(bq, bqd, tp[sl], ap[sl], None, pl, False)
+            assert torch.equal(bq.permute(2, 1, 0), out[0][f + 1])
+            assert torch.equal(bqd.permute(2, 1, 0), out[1][f + 1])
+    assert window.launches == 2
+
+
+@pytest.mark.parametrize("case", [
+    ("a1", 1, True, True, False),
+    ("a1", 2, False, False, True),
+    ("chain", 2, True, False, True),
+    ("chain45", 1, False, True, True),
+    ("chain45", 2, True, True, False),
+], ids=lambda c: "%s-epc%d-%s%s-%s" % (c[0], c[1], "act" if c[2] else "noact",
+                                       "-res" if c[3] else "", "per_env" if c[4] else "shared"))
+def test_host_interval_forward(on_host, case):
+    """K2 with and without its export against the plain
+    ``interval(export=True)``: the final state and every exported substep
+    entry state."""
+    name, epc, with_act, with_res, per_env = case
+    on_host(epc)
+    model = _model(name)
+    state, tgt, act, params = _problem(model, per_env)
+    res = torch.as_tensor(np.random.RandomState(3).randn(SUB, 6, model.n_links, E)
+                          .astype(np.float32) * 0.1)
+    integ = tint.SemiImplicitIntegrator(model)
+    di = soa_grad.DiffInterval(integ, DT, SUB, with_res=with_res, with_act=with_act)
+    pl = _plane_list(model, params)
+    bq, bqd, tp, ap = _inner(state, tgt, act)
+    a_in, r_in = (ap if with_act else None), (res if with_res else None)
+    rq, rqd, rs = tint.interval(integ, DT, bq, bqd, tp, a_in, r_in, *pl, export=True)
+    q, qd, sst = di._forward(bq, bqd, tp, a_in, r_in, pl, True)
+    for x, y, tol in ((q, rq, 1e-6), (qd, rqd, 2e-4), (sst[:, :, :7], rs[:, :, :7], 1e-6),
+                      (sst[:, :, 7:], rs[:, :, 7:], 2e-4)):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=0, atol=tol)
+    q2, qd2, none = di._forward(bq, bqd, tp, a_in, r_in, pl, False)
+    assert none is None and torch.equal(q2, q) and torch.equal(qd2, qd)
+    assert di.launches[soa_grad.KERNEL_FWD] == 2
 
 
 def _grads(model, params, state, tgt, act, res, with_act, with_res, shared):
