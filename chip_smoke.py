@@ -67,11 +67,39 @@ Phases (any failure exits non-zero):
     the plain version on the CPU; last K2 values and K3 gradients of one
     83-substep interval (the 24 Hz case) at E=256 at the plain
     linearization point;
+ 9. the interval kernels with live joint anchors (K2/K3 ``with_xp``) vs
+    the plain interval with the anchor planes, on a1 and the 45-contact
+    chain at E=256, anchors moved ~1e-2 m and ~0.05 rad from the model's
+    (seeded), per env (lane E) and shared (lane 1), with acts and residual
+    forces on and off: K2 values over one interval and chained over 3,
+    K3 gradients (the three anchor planes included) at the plain
+    linearization, shared planes through the env reduction; and at the
+    model's own anchors (lane 1) K2's states and K3's other gradients equal
+    to the baked kernels' bit for bit;
+10. the lab4d main path: phys_interface on a1 (kp links: its four calf
+    links) with random seeded fields over two synthetic videos of 64 frames,
+    both camera fields fitted (fit_camera_mlp) to one camera so the robot
+    stands upright, 512 envs x 24 frames at 33 substeps a frame,
+    pos_distill_wt 0.1, noise_std 0: override_control_ref_states,
+    correct_scale (4 frames, at most 8 steps), one warm-up and 3 timed
+    forward()+update() steps with the launch counts set to 0 just before and
+    read just after (the with_xp K2, K3 and reduction once per interval and
+    step, K1 never), finite losses with pos_distill > 0, a non-zero
+    gradient of object_field.articulation.rest_offsets (the anchors'
+    gradient reached the fields), some kinematics_proxy tensor changed,
+    peak device memory, a profiled step; the with_xp K2 and K3 alone on the
+    main path's last interval (after the landing), timed (device time by
+    CUDA events behind a device sleep) and held against plain; the eval forward over both videos (the with_xp K2 chained, no
+    K1), get_camera, override_states_inv; then at 8 envs the same step over
+    8 frames on the kernels and on the plain interval on the card: losses
+    and every tensor's gradient within TOL_GRAD_SUM;
  then a line quoting (not measuring) each kernel's wrapper time before
     its warp-per-env redesign, a ``kernels`` JSON line (``ms`` the
     wrapper's time by CUDA events, ``device_ms`` its kernels' device time by
     torch.profiler, both measured in this run, ``device_launches`` the
-    launches the profiler recorded of those issued; ``design``), the
+    launches the profiler recorded of those issued; ``design``; the with_xp
+    pair as ``soa_interval_fwd[with_xp]`` and ``soa_interval_bwd[with_xp]``
+    from phase 10), the
     nvidia-smi line, and as the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -96,6 +124,18 @@ E_SMALL = 8  # envs of the bench training workload held against plain on the CPU
 # envs of the 45-contact chain's cases: 8 envs per CTA (sim/soa.py:envs_per_cta),
 # 129 CTAs, the last holding 3
 E_RAGGED = 1027
+# the lab4d main path (phase 10): two synthetic videos of this many frames,
+# and a1's four calf links as the interface's kp links (its template table
+# names none; the lab4d quad and human templates have theirs)
+LAB4D_FRAMES = 64
+# frames of the lab4d step held against the plain version at E_SMALL envs
+# (8: 231 substeps, a third of the plain version's time at 24). Every
+# gradient there is summed over envs and frames, and where the two sides'
+# FMA rounding carries one env across a contact kink it moves by that env's
+# jump: measured on an NVIDIA H100 80GB HBM3 at 700 W, 8.5e-4 of its max
+# over 24 frames, and 4.8e-6 and 8.0e-4 over 8 frames from two model states
+F_SMALL = 8
+KP_LINKS_A1 = ("FR_calf", "FL_calf", "RR_calf", "RL_calf")
 # Quoted, not measured by this run: each kernel's wrapper time by CUDA
 # events at the main path's shapes when it ran one thread per env, before
 # its warp-per-env redesign (this script, NVIDIA H100 80GB HBM3 at 700 W;
@@ -294,8 +334,9 @@ def param_planes(model, params):
     return {"ke": ke, "kd": kd, "mass": mass}, [planes[n] for n in soa.TRACED_NAMES]
 
 
-def state_names(act):
-    return ["bq0", "bqd0", "tgt"] + (["act"] if act is not None else [])
+def state_names(act, res=None):
+    return ["bq0", "bqd0", "tgt"] + (["act"] if act is not None else []) + (
+        ["res"] if res is not None else [])
 
 
 def interval_grads(fn, bq, bqd, tgt, act, leaves, pl, w):
@@ -316,34 +357,36 @@ def interval_grads(fn, bq, bqd, tgt, act, leaves, pl, w):
     return q.detach(), qd.detach(), dict(zip(names, list(g) + list(g_par)))
 
 
-def linearized_grads(label, di, bq, bqd, tgt, act, leaves, pl, w):
+def linearized_grads(label, di, bq, bqd, tgt, act, leaves, pl, w, res=None):
     """Check (a)'s gradients: autograd of the plain interval, and K3 fed the
     plain forward's own substep entry states, with every plane widened to
     one lane per env. For shared planes, also K3 with the lane-1 planes
     (its env reduction), held to the float64 sum of the per-env partials
     and returned as ``sum_<plane>`` beside the plain gradient's env sum;
-    ``leaves`` get their gradients from the reduced planes."""
+    ``leaves`` get their gradients from the reduced planes. The planes are
+    the interval's (``di.names``: with live anchors the three anchor planes
+    too); ``res`` optional residual forces."""
     import torch
     from ppr_diffphys_torch.sim import integrator as tint
-    from ppr_diffphys_torch.sim import soa
 
     E = bq.shape[-1]
     wide = [p.detach().expand(*p.shape[:-1], E).contiguous().requires_grad_() for p in pl]
-    ins = [x.clone().requires_grad_() for x in (bq, bqd, tgt) + (
-        (act,) if act is not None else ())]
-    q, qd, sst = tint.interval(di.integrator, di.dt, ins[0], ins[1], ins[2],
-                               ins[3] if act is not None else None, None, *wide, export=True)
+    seq = [None if x is None else x.clone().requires_grad_() for x in (act, res)]
+    ins = [x.clone().requires_grad_() for x in (bq, bqd, tgt)]
+    q, qd, sst = tint.interval(di.integrator, di.dt, *ins, *seq, *wide, export=True)
+    ins += [x for x in seq if x is not None]
     gp = torch.autograd.grad((q * w[0]).sum() + (qd * w[1]).sum(), ins + wide)
-    dbq, dbqd, dtgt, dact, _, dwide = di._backward(
-        sst, tgt, act, None, [x.detach() for x in wide], w[0], w[1])
-    names = state_names(act) + list(soa.TRACED_NAMES)
-    got = [dbq, dbqd, dtgt] + ([dact] if act is not None else []) + list(dwide)
+    dbq, dbqd, dtgt, dact, dres, dwide = di._backward(
+        sst, tgt, act, res, [x.detach() for x in wide], w[0], w[1])
+    names = state_names(act, res) + list(di.names)
+    got = [dbq, dbqd, dtgt] + [g for g, x in ((dact, act), (dres, res)) if x is not None] + list(
+        dwide)
     ref, got = dict(zip(names, gp)), dict(zip(names, got))
     shared = [p.shape[-1] == 1 for p in pl]
     dplanes = list(dwide)
     if any(shared):
-        reduced = di._backward(sst, tgt, act, None, [p.detach() for p in pl], w[0], w[1])[5]
-        for n, sh, s, g in zip(soa.TRACED_NAMES, shared, reduced, dwide):
+        reduced = di._backward(sst, tgt, act, res, [p.detach() for p in pl], w[0], w[1])[5]
+        for n, sh, s, g in zip(di.names, shared, reduced, dwide):
             if not sh:
                 continue
             g64 = g.double()
@@ -354,7 +397,7 @@ def linearized_grads(label, di, bq, bqd, tgt, act, leaves, pl, w):
                      "per-env partials by %.3g beyond the fp32 summation bound"
                      % (label, n, excess))
         dplanes = [s if sh else g for s, sh, g in zip(reduced, shared, dwide)]
-        for n, sh, s, g in zip(soa.TRACED_NAMES, shared, reduced, gp[len(ins):]):
+        for n, sh, s, g in zip(di.names, shared, reduced, gp[len(ins):]):
             if sh:  # the env sum, a gradient without an env axis
                 ref["sum_" + n], got["sum_" + n] = g.sum(-1, keepdim=True), s
     if leaves:
@@ -513,6 +556,355 @@ def record_calls(obj, method, box, n=1):
         return inner(*args)
 
     setattr(obj, method, wrapped)
+
+
+def anchor_checks(dev, a1, sub, dt):
+    """Phase 9: K2/K3 with live joint anchors (with_xp) against the plain
+    interval with the anchor planes, and at the model's own anchors against
+    the baked kernels bit for bit."""
+    import torch
+    from ppr_diffphys_torch.sim import integrator as tint
+    from ppr_diffphys_torch.sim import soa, soa_grad, synthetic
+    from ppr_diffphys_torch.sim.kinematics import eval_fk
+
+    t0 = time.time()
+    for mname, model in (("a1", a1), ("chain45", synthetic.chain_model(extra_boxes=True))):
+        E = E_CHECK
+        q, qd, tgt, act = synthetic.window_problem(model, E, sub, F_CHECK, seed=SEED + 9)
+        bq, bqd = eval_fk(model, torch.as_tensor(q), torch.as_tensor(qd))
+        bq = synthetic.grounded(model, bq.numpy(), seed=SEED + 9)
+        state = tint.SimState(torch.as_tensor(bq, device=dev), bqd.to(dev))
+        with torch.no_grad():
+            cforce = tint.eval_body_contacts(model, tint.default_sim_params(model, dev), state)
+        if float(cforce[..., 3:].abs().max()) < 1.0:
+            fail("phase 9 %s: no contact force: the check is vacuous" % mname)
+        integ = tint.SemiImplicitIntegrator(model)
+        rng = np.random.RandomState(SEED + 10)
+        B = model.n_links
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        w = (t(rng.randn(7, B, E)), t(rng.randn(6, B, E)))
+        res = t(rng.randn(sub, 6, B, E) * 0.1)
+        bq_p = state.body_q.permute(2, 1, 0).contiguous()
+        bqd_p = state.body_qd.permute(2, 1, 0).contiguous()
+        tgt_p = t(tgt).permute(0, 2, 1).contiguous()
+        act_p = t(act).permute(0, 2, 1).contiguous()
+        params = tint.default_sim_params(model, dev)
+        planes = soa.traced_planes(model, params)
+        base = [planes[n] for n in soa.TRACED_NAMES]
+        for lanes in ("per_env", "shared"):
+            xp = soa.xp_planes(model, t(synthetic.perturbed_anchors(
+                model, E if lanes == "per_env" else None, seed=SEED + 5)))
+            pl = base + [xp[n] for n in soa.XP_NAMES]
+            for ar in (True, False):
+                di = soa_grad.DiffInterval(integ, dt, sub, with_act=ar, with_res=ar,
+                                           with_xp=True)
+                label = "phase 9 %s/%s anchors/%s (E=%d, %d contacts)" % (
+                    mname, lanes, "act+res" if ar else "no act/res", E, model.contact_count)
+                a_in, r_in = (act_p[:sub], res) if ar else (None, None)
+                # values: one interval, then K2 chained over the window's intervals
+                x, xd, px, pxd = bq_p, bqd_p, bq_p, bqd_p
+                with torch.no_grad():
+                    for f in range(F_CHECK - 1):
+                        sl = slice(f * sub, (f + 1) * sub)
+                        a_f = act_p[sl] if ar else None
+                        x, xd = di(x, xd, tgt_p[sl], a_f, r_in, *pl)
+                        px, pxd = tint.interval(integ, dt, px, pxd, tgt_p[sl], a_f, r_in, *pl)
+                        if f == 0:
+                            check_errs(label + " K2 values, 1 interval",
+                                       {"q": float((x - px).abs().max()),
+                                        "qd": float((xd - pxd).abs().max())}, TOL_INTERVAL)
+                torch.cuda.synchronize()
+                check_errs(label + " K2 chained over %d intervals" % (F_CHECK - 1),
+                           {"q": float((x - px).abs().max()),
+                            "qd": float((xd - pxd).abs().max())},
+                           {"q": TOL_CHECK["q"], "qd": TOL_CHECK["qd"]})
+                ref, got = linearized_grads(label, di, bq_p, bqd_p, tgt_p[:sub], a_in, {}, pl,
+                                            w, res=r_in)
+                check_grads(label, grad_errors(ref, got, E), E, linearized=True)
+        # the model's own anchors as lane-1 planes: the baked kernels' results bit for bit
+        own = soa.xp_planes(model, torch.as_tensor(model.joint_X_p, device=dev))
+        baked = soa_grad.DiffInterval(integ, dt, sub, with_act=True)
+        live = soa_grad.DiffInterval(integ, dt, sub, with_act=True, with_xp=True)
+        args = (bq_p, bqd_p, tgt_p[:sub], act_p[:sub], None)
+        k0 = baked._forward(*args, base, True)
+        k1 = live._forward(*args, base + [own[n] for n in soa.XP_NAMES], True)
+        g0 = baked._backward(k0[2], tgt_p[:sub], act_p[:sub], None, base, w[0], w[1])
+        g1 = live._backward(k1[2], tgt_p[:sub], act_p[:sub], None,
+                            base + [own[n] for n in soa.XP_NAMES], w[0], w[1])
+        same = all(torch.equal(a, b) for a, b in zip(k0, k1)) and all(
+            torch.equal(a, b) for a, b in zip(g0[:4] + tuple(g0[5]), g1[:4] + tuple(g1[5][:4])))
+        if not same:
+            fail("phase 9 %s: with_xp at the model's own anchors differs from the baked "
+                 "kernels" % mname)
+        log("  phase 9 %s: K2 states and K3's other gradients at the model's own anchors == "
+            "the baked kernels', bit for bit" % mname)
+    log("phase 9 with_xp interval kernels vs plain: ok (%.1f s)" % (time.time() - t0))
+
+
+class PlainInterval:
+    """The plain interval (integrator.interval, autograd) behind a
+    DiffInterval's interface, on any device: the stand-in that holds the
+    lab4d step on the kernels against the same step on the plain version."""
+
+    def __init__(self, di):
+        self.S, self.with_xp, self.names = di.S, di.with_xp, di.names
+        self.integrator, self.dt = di.integrator, di.dt
+        self.with_act, self.with_res = di.with_act, di.with_res
+
+    def __call__(self, bq, bqd, tgt, act, res, *planes):
+        from ppr_diffphys_torch.sim import integrator as tint
+
+        return tint.interval(self.integrator, self.dt, bq, bqd, tgt,
+                             act if self.with_act else None, res if self.with_res else None,
+                             *planes)
+
+
+def lab4d_main_path(dev, sub_expect):
+    """Phase 10: the lab4d coupling's main path on the card (see the module
+    docstring). Returns the two with_xp kernel rows of the kernels line."""
+    import torch
+    from ppr_diffphys_torch.data.robot import URDFRobot
+    from ppr_diffphys_torch.models import fields
+    from ppr_diffphys_torch.models.interface import phys_interface
+    from ppr_diffphys_torch.sim import integrator as tint
+    from ppr_diffphys_torch.sim import soa_grad
+    from ppr_diffphys_torch.utils import h100
+    from ppr_diffphys_torch.utils.config import build_opts
+
+    t0 = time.time()
+    urdf_dir = os.path.join(REPO, "tests", "fixtures")
+    offsets = [0, LAB4D_FRAMES, 2 * LAB4D_FRAMES]
+    g = torch.Generator().manual_seed(SEED)
+    robot = URDFRobot(os.path.join(urdf_dir, "a1", "urdf", "a1.urdf"))
+    obj = fields.ObjectField(offsets, robot, g)
+    scn = fields.CameraField(offsets, g, name="scene_field")
+    intr = fields.IntrinsicsField(offsets)
+    # Random weights, then a scene a user would have: both camera fields
+    # fitted (fit_camera_mlp) to one camera 3 m from the robot, panning
+    # +-0.3 rad, so the object and scene views cancel and the urdf frame maps
+    # to the world by the articulation's orient and shift alone: a1 upright
+    # (urdf z up), its trunk 0.45 m above the ground
+    n = offsets[-1]
+    pan = 0.3 * np.sin(np.arange(n) * 2 * np.pi / LAB4D_FRAMES)
+    rt = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    rt[:, 0, 0], rt[:, 0, 2], rt[:, 2, 0], rt[:, 2, 2] = (np.cos(pan), np.sin(pan),
+                                                          -np.sin(pan), np.cos(pan))
+    rt[:, 2, 3] = 3.0
+    t1 = time.perf_counter()
+    for spec in (obj, scn):
+        params = dict(spec.init_params)
+        params["camera_mlp"] = {k: v.to(dev) for k, v in params["camera_mlp"].items()}
+        spec.init_params.update(spec.fit_to_priors(params, rt, max_iters=300))
+    art = obj.init_params["articulation"]
+    art["orient"] = torch.tensor([np.sqrt(0.5), np.sqrt(0.5), 0.0, 0.0])  # wxyz, +90 deg about x
+    art["shift"] = torch.tensor([0.0, -0.45, 0.0])
+    log("phase 10 camera fields fitted to the camera priors (%d frames, 300 Adam steps "
+        "each): %.3f s" % (n, time.perf_counter() - t1))
+    opts = build_opts(seqname="lab4d-a1", logname="chip", urdf_template="a1", urdf_dir=urdf_dir,
+                      logroot=os.path.join(REPO, "logdir", "chip_smoke"), seed=SEED,
+                      pos_distill_wt=0.1, phys_vid=[0, 1], noise_std=0.0)
+    model_dict = dict(scene_field=(scn, scn.init_params), object_field=(obj, obj.init_params),
+                      intrinsics=(intr, intr.init_params), frame_interval=1.0 / 60,
+                      frame_info=None)
+    tm = phys_interface(opts, model_dict, device=dev)
+    tm.robot.urdf.kp_links = list(KP_LINKS_A1)
+    if tm.steps_per_fr_interval != sub_expect:
+        fail("phase 10: %d substeps a frame, %d expected" % (tm.steps_per_fr_interval,
+                                                              sub_expect))
+    sub = tm.steps_per_fr_interval
+    log("phase 10 interface built: %.1f s (a1, fields over videos %s, %d substeps a frame, "
+        "pos_distill_wt %g, noise_std %g)" % (time.time() - t0, offsets, sub,
+                                              opts["pos_distill_wt"], tm.noise_std))
+    tm.override_control_ref_states()
+    t1 = time.perf_counter()
+    tm.correct_scale(np.arange(4), max_steps=8)
+    log("phase 10 correct_scale (4 frames, at most 8 steps): %.3f s, scene logscale %.4f"
+        % (time.perf_counter() - t1, float(tm.params["scene_field"]["logscale"])))
+
+    tm.reinit_envs(E_TRAIN, frames_per_wdw=F_TRAIN, is_eval=False)
+    di = tm._interval(True)
+    calls = []  # the warm-up step's intervals; the last one, after the landing, is timed
+    record_calls(di, "_forward", calls, n=F_TRAIN - 1)
+
+    def step():
+        out = tm.forward()
+        gd = tm.update()
+        torch.cuda.synchronize()
+        return out, gd
+
+    step()  # warm-up (records the intervals' inputs)
+    del di._forward
+    proxy = [t.detach().clone() for n, t in tm.named_tensors() if n.startswith("kinematics_proxy")]
+    for k in di.launches:
+        di.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(3):
+        t1 = time.perf_counter()
+        out, gd = step()
+        walls.append(time.perf_counter() - t1)
+        losses = {k: float(v) for k, v in out.items()}
+        log("  phase 10 step %d: wall %.3f ms, losses %s" % (i, walls[-1] * 1e3,
+                                                            json.dumps(losses)))
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail("phase 10: non-finite loss")
+        if not losses["loss_pos_distill"] > 0:
+            fail("phase 10: pos_distill is not positive")
+    launches = dict(di.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ro_main = float(tm.last_grads["object_field.articulation.rest_offsets"].abs().max())
+    if not (np.isfinite(ro_main) and ro_main > 0):
+        fail("phase 10: no gradient reached object_field.articulation.rest_offsets")
+    n_int = F_TRAIN - 1
+    want = {soa_grad.KERNEL_FWD: 3 * n_int, soa_grad.KERNEL_BWD: 3 * n_int,
+            soa_grad.KERNEL_REDUCE: 3 * n_int}
+    log("phase 10 launches during the main path (with_xp): %s" % json.dumps(launches))
+    if launches != want:
+        fail("phase 10: launches %s, expected %s (one of each per interval and step)"
+             % (json.dumps(launches), json.dumps(want)))
+    if any(isinstance(k, tuple) and k[0] in ("window",) for k in tm._kernels) or any(
+            isinstance(k, tuple) and k[0] == "interval" and not k[-1] for k in tm._kernels):
+        fail("phase 10: the lab4d path built a kernel without anchor planes: %s"
+             % list(tm._kernels))
+    bq0, bqd0, tgt0, act0, res0, planes0 = calls[-1][:6]
+    del calls
+    if len(planes0) != 7 or planes0[4].shape[-1] != E_TRAIN:
+        fail("phase 10: the interval did not get per-env anchor planes")
+    changed = sum(int(not torch.equal(a, t)) for a, (n, t) in zip(
+        proxy, [(n, t) for n, t in tm.named_tensors() if n.startswith("kinematics_proxy")]))
+    if changed == 0:
+        fail("phase 10: no kinematics_proxy tensor changed over 3 steps")
+    log("phase 10 train step wall ms (3 steps, %d envs x %d frames): %s; median %.3f ms; "
+        "peak device memory %.3f GB; %d launches of each with_xp kernel per step; %d "
+        "kinematics_proxy tensors changed; object_field.articulation.rest_offsets "
+        "gradient max %.3g (the anchors' gradient reached the fields)"
+        % (E_TRAIN, F_TRAIN, [round(x * 1e3, 3) for x in walls],
+           float(np.median(walls)) * 1e3, peak_gb, n_int, changed, ro_main))
+    profile_steps(step, 2, E_TRAIN, F_TRAIN)
+
+    # the with_xp K2 and K3 alone on the main path's last-interval inputs
+    rng = np.random.RandomState(SEED + 12)
+    B = tm.n_links
+    w = (torch.as_tensor(rng.randn(7, B, E_TRAIN).astype(np.float32), device=dev),
+         torch.as_tensor(rng.randn(6, B, E_TRAIN).astype(np.float32), device=dev))
+    # device time by CUDA events behind a device sleep (queued_ms): this late
+    # in the process torch.profiler can record none of a kernel's launches
+    k2_call = lambda: di._forward(bq0, bqd0, tgt0, None, None, planes0, True)
+    k2_ms, (kq, kqd, sstate) = cuda_time_ms(k2_call, 10)
+    k2_dev_ms = queued_ms(k2_call, 20)
+    k3_call = lambda: di._backward(sstate, tgt0, None, None, planes0, w[0], w[1])
+    k3_ms, _ = cuda_time_ms(k3_call, 10)
+    k3_dev_ms = queued_ms(k3_call, 20)
+    k2_rec = k3_rec = "20 of 20 by CUDA events behind a device sleep"
+    p2_ms, (pq, pqd) = cuda_time_ms(lambda: tint.interval(di.integrator, di.dt, bq0, bqd0,
+                                                          tgt0, None, None, *planes0), 1)
+
+    def plain_bwd():
+        ins = [x.clone().requires_grad_() for x in (bq0, bqd0, tgt0) + tuple(planes0)]
+        q, qd = tint.interval(di.integrator, di.dt, ins[0], ins[1], ins[2], None, None,
+                              *ins[3:])
+        return torch.autograd.grad((q * w[0]).sum() + (qd * w[1]).sum(), ins)
+
+    p3_ms, _ = cuda_time_ms(plain_bwd, 1)
+    label = "phase 10 main-path with_xp interval"
+    k2_err = {"q": float((kq - pq).abs().max()), "qd": float((kqd - pqd).abs().max())}
+    check_errs(label + " K2 values", k2_err, TOL_INTERVAL)
+    ref, got = linearized_grads(label, di, bq0, bqd0, tgt0, None, {}, list(planes0), w)
+    check_grads(label, grad_errors(ref, got, E_TRAIN), E_TRAIN, linearized=True)
+    k3_abs = max(float((got[n] - ref[n]).abs().max()) for n in ("xp_t", "xp_q", "rp_local"))
+    del ref, got
+    n_act = soa_grad.active_contacts(tm.env, sstate)
+    iw = soa_grad.interval_work(tm.env, E_TRAIN, sub, n_active_contacts=n_act, xp_lanes=E_TRAIN)
+    k2_roof = h100.roofline(iw["fwd_bytes"], iw["fwd_ops"])
+    k3_roof = h100.roofline(iw["bwd_bytes"], iw["bwd_ops"])
+    log("phase 10 with_xp interval times (E=%d, %d substeps, per-env anchors, the last "
+        "interval of the main path's warm-up step; wrappers by CUDA events over 10 calls, "
+        "device time by CUDA events around 20 calls queued behind a device sleep): K2 %.3f "
+        "ms (%.3f ms of "
+        "device time; bound %.4f ms by %s), plain forward %.1f ms; K3 incl. reduce %.3f ms "
+        "(%.3f ms of device time; bound %.4f ms by %s; %d active contact-substeps), plain "
+        "backward %.1f ms"
+        % (E_TRAIN, sub, k2_ms, k2_dev_ms, k2_roof["ms"], k2_roof["by"], p2_ms, k3_ms,
+           k3_dev_ms, k3_roof["ms"], k3_roof["by"], n_act, p3_ms))
+    del sstate, kq, kqd, pq, pqd
+
+    # the eval forward over both videos (1 env): the with_xp K2 chained, no K1
+    tm.reinit_envs(1, frames_per_wdw=tm.total_frames, is_eval=True)
+    for k in di.launches:
+        di.launches[k] = 0
+    t1 = time.perf_counter()
+    ev = tm.forward()
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t1) * 1e3
+    log("phase 10 eval (1 env x %d frames): %.3f ms, losses %s, launches %s"
+        % (tm.frames_per_wdw, eval_ms, json.dumps({k: float(v) for k, v in ev.items()}),
+           json.dumps(di.launches)))
+    if di.launches != {soa_grad.KERNEL_FWD: tm.frames_per_wdw - 1, soa_grad.KERNEL_BWD: 0,
+                       soa_grad.KERNEL_REDUCE: 0}:
+        fail("phase 10 eval: launches %s, expected %d K2 and nothing else"
+             % (json.dumps(di.launches), tm.frames_per_wdw - 1))
+    if any(isinstance(k, tuple) and k[0] == "window" for k in tm._kernels):
+        fail("phase 10 eval: the window kernel K1 was built")
+    if not all(np.isfinite(float(v)) for v in ev.values()):
+        fail("phase 10 eval: non-finite loss")
+    cam = tm.get_camera()
+    if cam.shape != (tm.frames_per_wdw, 4, 4) or not np.isfinite(cam).all():
+        fail("phase 10: get_camera gave %s" % (cam.shape,))
+    tm.params["kinematics_distilled"]["scene_field"]["logscale"].add_(0.01)
+    tm.override_states_inv()
+    if not torch.equal(tm.params["scene_field"]["logscale"],
+                       tm.params["kinematics_distilled"]["scene_field"]["logscale"]):
+        fail("phase 10: override_states_inv did not copy the distilled fields back")
+    log("phase 10 get_camera %s, override_states_inv ok" % (cam.shape,))
+
+    # at E_SMALL envs: the same step on the kernels and on the plain version,
+    # over F_SMALL frames
+    tm.reinit_envs(E_SMALL, frames_per_wdw=F_SMALL, is_eval=False)
+    half = E_SMALL // 2
+    fs = np.concatenate([o + np.round(np.linspace(0, LAB4D_FRAMES - F_SMALL, E_SMALL - half
+                                                  if o else half))
+                         for o in offsets[:2]]).astype(np.float32)
+    outs = {}
+    key = ("interval", id(tm.integrator), sub, True)
+    kernel_di = tm._kernels[key]
+    for name, fn in (("kernels", kernel_di), ("plain", PlainInterval(kernel_di))):
+        tm._kernels[key] = fn
+        out = tm.forward(frame_start=fs)
+        torch.cuda.synchronize()
+        outs[name] = ({k: float(v) for k, v in out.items()}, dict(tm.last_grads))
+    tm._kernels[key] = kernel_di
+    tm._grad_accum = []
+    (lk, gk), (lp, gp) = outs["kernels"], outs["plain"]
+    rel = {n: float((gk[n] - gp[n]).abs().max() / (gp[n].abs().max() + 1e-30)) for n in gp}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    log("  phase 10 step at %d envs x %d frames, kernels vs plain on the card: total loss "
+        "%.9g vs %.9g; %d gradients, the largest max|kernel-plain|/max|plain| %s (tol %g)"
+        % (E_SMALL, F_SMALL, lk["total_loss"], lp["total_loss"], len(rel),
+           json.dumps({k: float("%.3g" % v) for k, v in worst}), TOL_GRAD_SUM))
+    if any(abs(lk[k] - lp[k]) > TOL_GRAD_SUM * max(abs(lp[k]), 1e-12) for k in lp):
+        fail("phase 10: losses on the kernels and the plain version disagree: %s vs %s"
+             % (json.dumps(lk), json.dumps(lp)))
+    if not all(np.isfinite(v) and v <= TOL_GRAD_SUM for v in rel.values()):
+        fail("phase 10: gradients on the kernels and the plain version disagree")
+    ro = float(gk["object_field.articulation.rest_offsets"].abs().max())
+    if not ro > 0:
+        fail("phase 10: no gradient reached object_field.articulation.rest_offsets")
+    log("phase 10 lab4d main path: ok (%.1f s); rest_offsets gradient max %.3g"
+        % (time.time() - t0, ro))
+    del tm
+    torch.cuda.empty_cache()
+    row = lambda name, launches, err, ms, pms, roof, dms, rec: {
+        "name": name, "route": "cuda", "source": "ppr_diffphys_torch/csrc/soa_interval.cu",
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+        "bound_ms": roof["ms"], "bound_by": roof["by"], "library_ms": None,
+        "design": "warp-per-env", "device_ms": dms, "device_launches": rec}
+    return [dict(row(soa_grad.KERNEL_FWD + "[with_xp]", launches[soa_grad.KERNEL_FWD],
+                     k2_err["q"], k2_ms, p2_ms, k2_roof, k2_dev_ms, k2_rec),
+                 replaces="ppr_diffphys_tpu/sim/pallas_soa_grad.py:473"),
+            dict(row(soa_grad.KERNEL_BWD + "[with_xp]",
+                     launches[soa_grad.KERNEL_BWD] + launches[soa_grad.KERNEL_REDUCE], k3_abs,
+                     k3_ms, p3_ms, k3_roof, k3_dev_ms, k3_rec),
+                 replaces="ppr_diffphys_tpu/sim/pallas_soa_grad.py:526")]
 
 
 def main():
@@ -1138,6 +1530,12 @@ def main():
                                 *param_planes(a1, params), w)
     check_grads(label, grad_errors(ref, got, E_CHECK), E_CHECK, linearized=True)
     log("phase 8 bench main path: ok (%.1f s)" % (time.time() - t0))
+
+    # ---- 9. the with_xp interval kernels vs plain on the card ---------------------
+    anchor_checks(dev, a1, sub, m.dt)
+
+    # ---- 10. the lab4d main path ---------------------------------------------------
+    xp_rows = lab4d_main_path(dev, sub)
     log("total %.1f s" % (time.time() - t_all))
 
     # ---- results -----------------------------------------------------------------
@@ -1203,7 +1601,7 @@ def main():
         "design": "warp-per-env",
         "device_ms": k4_dev_ms,
         "device_launches": k4_rec,
-    }]
+    }] + xp_rows
     log("quoted from PERF.md, not measured in this run: wrapper ms by CUDA events when each "
         "kernel ran one thread per env, each from the last run before its warp-per-env "
         "redesign (NVIDIA H100 80GB HBM3 at 700 W): %s"

@@ -7,9 +7,10 @@ scipy only: never jax, flax, optax or ``ppr_diffphys_tpu`` (whose
 host modules (URDF parser, model builder, mocap loader, config).
 
 Plain tensor math is PyTorch; the simulator's hot loops are hand-written
-CUDA kernels (``csrc/``: the serving window, the training interval pair
-and the bench rollout) with plain PyTorch versions beside them
-(``sim/integrator.py``) that CPU tensors take.
+CUDA kernels (``csrc/``: the serving window, the training interval pair,
+also with live joint anchors for the lab4d coupling of
+``models/interface.py``, and the bench rollout) with plain PyTorch versions
+beside them (``sim/integrator.py``) that CPU tensors take.
 
 Entry points take ``device=`` and default to ``"cuda"``; asking for cuda
 without a GPU raises instead of falling back to the CPU.

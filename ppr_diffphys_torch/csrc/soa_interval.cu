@@ -17,7 +17,18 @@
 //   applies the hand-derived adjoint of integrate -> joints -> contacts (the
 //   TPU kernel gets it from an in-kernel jax.vjp). It writes d(state0),
 //   dtgt[j] (+ dact[j], dres[j]) and per-env partial gradients of the 25
-//   parameter-plane rows per body.
+//   parameter-plane rows per body (35 with live joint anchors).
+// - `with_xp` (pallas_soa_grad.py:90-161, `tr_names = TRACED_NAMES +
+//   XP_NAMES`): both kernels take each joint's parent anchor as three more
+//   planes, xp_t (3 rows), xp_q (4) and rp_local (3), lane 1 or lane E, in
+//   place of body_f's constant columns: the lab4d coupling's per-env
+//   anchors. The warp copies them into its shared plane rows once per
+//   launch with the other planes; the joint sweep reads them there. K3 adds
+//   their cotangents (of the parent transform X_wp = X_p * X_pj and of the
+//   arm r_p = R_p rp_local) into the same shared gradient rows and writes
+//   them out as per-env partials beside the other 25 rows; shared anchors
+//   go through the env reduction. Without anchors (a null xp_t) the
+//   kernels read body_f and compute exactly what they did before.
 // - `soa_interval_reduce` sums those partials over envs for the shared
 //   (lane-1) planes in a fixed order: deterministic, no atomics. The TPU
 //   kernel does this sum in its own body (pallas_soa_grad.py:399-407).
@@ -68,7 +79,7 @@ struct BwdArgs {
   float* __restrict__ dtgt;          // (S, n_qd, E)
   float* __restrict__ dact;          // (S, n_qd, E) or null
   float* __restrict__ dres;          // (S, 6, B, E) or null
-  float* __restrict__ dplanes;       // (N_PLANE_ROWS, B, E) per-env partials
+  float* __restrict__ dplanes;       // (N_PLANE_ROWS[_XP], B, E) per-env partials
   int S;
 };
 
@@ -410,7 +421,7 @@ __device__ __forceinline__ void start_lane(Lane& L, const Args& a, const BwdArgs
   if (b >= B) return;
   for (int q = 0; q < 7; ++q) L.dn[q] = w.dq[((size_t)q * B + b) * a.E + e];
   for (int q = 0; q < 6; ++q) L.dn[7 + q] = w.dqd[((size_t)q * B + b) * a.E + e];
-  for (int r = 0; r < N_PLANE_ROWS; ++r) dpl[r * B + b] = 0.0f;
+  for (int r = 0; r < plane_rows(a); ++r) dpl[r * B + b] = 0.0f;
 }
 
 // Entering substep j: fetch substep j-1, wait for j, zero dtgt/dact row j
@@ -465,7 +476,8 @@ __device__ __forceinline__ void integrate_adj_lane(Lane& L, const Args& a, const
 
 // The joint of body lane (child b, parent p), reversed: dF of b and p ->
 // the child's d(state) share into slot rows 0-12 [k][b], the parent's into
-// rows 13-25; dtgt/dact of its dofs; body b's gains rows.
+// rows 13-25; dtgt/dact of its dofs; body b's gains rows and, with live
+// anchors, its anchor rows.
 __device__ __forceinline__ void joint_adj_lane(Lane& L, const Args& a, const BwdArgs& w,
                                                const Consts& k, const WarpMem& m,
                                                const float* mir, const float* row, int e,
@@ -488,8 +500,9 @@ __device__ __forceinline__ void joint_adj_lane(Lane& L, const Args& a, const Bwd
   // forward recompute (substep.cuh:joint_wrench)
   Q4 q_c = L.s.q;
   V3 t_c = L.s.t, w_c = L.s.w, v_c = L.s.v;
-  Q4 xpq = ld4(bf + 6);
-  V3 xpt = ld3(bf + 3), rpl = ld3(bf + 17), comb = ld3(bf + 14);
+  const Anchor an = anchor_of(a, m.pl, bf, b, B);
+  Q4 xpq = an.xpq;
+  V3 xpt = an.xpt, rpl = an.rpl, comb = ld3(bf + 14);
   Q4 pq = {0.f, 0.f, 0.f, 1.f};
   Q4 X_wp_q = xpq;
   V3 X_wp_t = xpt, w_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f}, r_p = {0.f, 0.f, 0.f};
@@ -668,13 +681,31 @@ __device__ __forceinline__ void joint_adj_lane(Lane& L, const Args& a, const Bwd
   g_Xwpq.x -= g_qiX.x; g_Xwpq.y -= g_qiX.y; g_Xwpq.z -= g_qiX.z; g_Xwpq.w += g_qiX.w;
   qrot_adj(q_c, comb, neg(g_rc), g_qc, dv);
   put_state(m.jw + b, B, g_xerr, g_qc, g_werr, g_verr);
+  // the anchor: X_wp = (p.t + qrot(pq, xpt), pq * xpq), r_p = qrot(pq, rpl);
+  // without a parent X_wp = (xpt, xpq)
+  V3 g_xpt = neg(g_xerr), g_rpl = {0.f, 0.f, 0.f};
+  Q4 g_xpq = g_Xwpq;
   if (hp) {
     Q4 g_pq = {0.f, 0.f, 0.f, 0.f};
-    V3 g_Xwpt = neg(g_xerr);
-    qmul_adj(pq, xpq, g_Xwpq, g_pq, dq_unused);
-    qrot_adj(pq, xpt, g_Xwpt, g_pq, dv);
-    qrot_adj(pq, rpl, g_rp, g_pq, dv);
+    const V3 g_Xwpt = g_xpt;
+    g_xpq = {0.f, 0.f, 0.f, 0.f};
+    g_xpt = {0.f, 0.f, 0.f};
+    qmul_adj(pq, xpq, g_Xwpq, g_pq, g_xpq);
+    qrot_adj(pq, xpt, g_Xwpt, g_pq, g_xpt);
+    qrot_adj(pq, rpl, g_rp, g_pq, g_rpl);
     put_state(m.jw + 13 * B + b, B, g_Xwpt, g_pq, neg(g_werr), neg(g_verr));
+  }
+  if (a.xp_t) {
+    dplb[PR_XP_T * B] += g_xpt.x;
+    dplb[(PR_XP_T + 1) * B] += g_xpt.y;
+    dplb[(PR_XP_T + 2) * B] += g_xpt.z;
+    dplb[PR_XP_Q * B] += g_xpq.x;
+    dplb[(PR_XP_Q + 1) * B] += g_xpq.y;
+    dplb[(PR_XP_Q + 2) * B] += g_xpq.z;
+    dplb[(PR_XP_Q + 3) * B] += g_xpq.w;
+    dplb[PR_RP_LOCAL * B] += g_rpl.x;
+    dplb[(PR_RP_LOCAL + 1) * B] += g_rpl.y;
+    dplb[(PR_RP_LOCAL + 2) * B] += g_rpl.z;
   }
 }
 
@@ -784,7 +815,7 @@ __device__ __forceinline__ void finish_lane(const Lane& L, const Args& a, const 
   if (b >= B) return;
   for (int q = 0; q < 7; ++q) w.dbq0[((size_t)q * B + b) * a.E + e] = L.dn[q];
   for (int q = 0; q < 6; ++q) w.dbqd0[((size_t)q * B + b) * a.E + e] = L.dn[7 + q];
-  for (int r = 0; r < N_PLANE_ROWS; ++r)
+  for (int r = 0; r < plane_rows(a); ++r)
     w.dplanes[((size_t)r * B + b) * a.E + e] = dpl[r * B + b];
 }
 
@@ -865,10 +896,12 @@ Args make_args(const float* tgt, const float* act, const float* res, const int* 
                const float* body_f, const int* cbody, const float* cf,
                const float* gains, int gains_pe, const float* inv_m, int inv_m_pe,
                const float* inertia, int inertia_pe, const float* inv_inertia,
-               int inv_inertia_pe, int E, int B, int n_qd, int C, float dt,
+               int inv_inertia_pe, const float* xp_t, const float* xp_q,
+               const float* rp_local, int xp_pe, int E, int B, int n_qd, int C, float dt,
                float ang_decay, float gx, float gy, float gz, float attach_ke,
                float attach_kd) {
   Args a = {};
+  a.xp_t = xp_t; a.xp_q = xp_q; a.rp_local = rp_local; a.xp_pe = xp_pe;
   a.tgt = tgt; a.act = act; a.res = res;
   a.body_i = body_i; a.body_f = body_f; a.cbody = cbody; a.cf = cf;
   a.gains = gains; a.inv_m = inv_m; a.inertia = inertia; a.inv_inertia = inv_inertia;
@@ -884,32 +917,41 @@ bool bad_dims(int E, int B, int C, int S) {
   return B < 1 || B > MAX_BODIES || E < 1 || S < 1 || C < 0;
 }
 
+// The anchor planes come all three or not at all.
+bool bad_anchors(const float* xp_t, const float* xp_q, const float* rp_local) {
+  return !((xp_t && xp_q && rp_local) || (!xp_t && !xp_q && !rp_local));
+}
+
 }  // namespace
 
-extern "C" int soa_interval_plane_rows() { return N_PLANE_ROWS; }
+// plane rows of K3's gradient output: 25, or 35 with live anchors (xp != 0)
+extern "C" int soa_interval_plane_rows(int xp) { return xp ? N_PLANE_ROWS_XP : N_PLANE_ROWS; }
 extern "C" int soa_interval_max_bodies() { return MAX_BODIES; }
 
 // bq0 (7,B,E), bqd0 (6,B,E), tgt/act (S,n_qd,E), res (S,6,B,E) (act, res
-// may be null), planes of lane 1 or E (*_pe); out_q (7,B,E), out_qd
-// (6,B,E), sstate (S,E,13,B) or null (no export).
+// may be null), planes of lane 1 or E (*_pe), anchor planes xp_t (3,B,L),
+// xp_q (4,B,L), rp_local (3,B,L) or all three null (body_f's anchors);
+// out_q (7,B,E), out_qd (6,B,E), sstate (S,E,13,B) or null (no export).
 extern "C" int soa_interval_fwd_launch(
     const float* bq0, const float* bqd0, const float* tgt, const float* act,
     const float* res, const int* body_i, const float* body_f, const int* cbody,
     const float* cf, const int* adj_off, const int* adj, const int* c_off, int n_adj,
     const float* gains, int gains_pe, const float* inv_m, int inv_m_pe,
     const float* inertia, int inertia_pe, const float* inv_inertia, int inv_inertia_pe,
+    const float* xp_t, const float* xp_q, const float* rp_local, int xp_pe,
     float* out_q, float* out_qd, float* sstate, int E, int B, int n_qd, int C, int S,
     float dt, float ang_decay, float gx, float gy, float gz, float attach_ke,
     float attach_kd, int envs_per_cta, void* stream) {
   if (bad_dims(E, B, C, S) || n_adj < 0 || envs_per_cta < 1 ||
-      envs_per_cta > MAX_ENVS_PER_CTA)
+      envs_per_cta > MAX_ENVS_PER_CTA || bad_anchors(xp_t, xp_q, rp_local))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(tgt, act, res, body_i, body_f, cbody, cf, gains, gains_pe, inv_m,
-                     inv_m_pe, inertia, inertia_pe, inv_inertia, inv_inertia_pe, E, B,
-                     n_qd, C, dt, ang_decay, gx, gy, gz, attach_ke, attach_kd);
+                     inv_m_pe, inertia, inertia_pe, inv_inertia, inv_inertia_pe, xp_t, xp_q,
+                     rp_local, xp_pe, E, B, n_qd, C, dt, ang_decay, gx, gy, gz, attach_ke,
+                     attach_kd);
   a.bq0 = bq0; a.bqd0 = bqd0; a.out_q = out_q; a.out_qd = out_qd;
   const Lists li = {adj_off, adj, c_off, n_adj};
-  const Plan p = make_plan(B, C, n_qd, n_adj, false, res != nullptr);
+  const Plan p = make_plan(B, C, n_qd, n_adj, false, res != nullptr, xp_t != nullptr);
   const int bytes = 4 * (p.cta + envs_per_cta * p.warp);
   static bool smem_cap_set[MAX_DEVICES];
   const int st = allow_dyn_smem(soa_interval_fwd_kernel, smem_cap_set);
@@ -926,21 +968,23 @@ extern "C" int soa_interval_bwd_launch(
     const int* adj_off, const int* adj, const int* c_off, int n_adj,
     const float* gains, int gains_pe, const float* inv_m, int inv_m_pe,
     const float* inertia, int inertia_pe, const float* inv_inertia, int inv_inertia_pe,
+    const float* xp_t, const float* xp_q, const float* rp_local, int xp_pe,
     const float* dq, const float* dqd, float* dbq0, float* dbqd0, float* dtgt,
     float* dact, float* dres, float* dplanes, int E, int B, int n_qd, int C, int S,
     float dt, float ang_decay, float gx, float gy, float gz, float attach_ke,
     float attach_kd, int envs_per_cta, void* stream) {
   if (bad_dims(E, B, C, S) || n_adj < 0 || envs_per_cta < 1 ||
-      envs_per_cta > MAX_ENVS_PER_CTA)
+      envs_per_cta > MAX_ENVS_PER_CTA || bad_anchors(xp_t, xp_q, rp_local))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(tgt, act, res, body_i, body_f, cbody, cf, gains, gains_pe, inv_m,
-                     inv_m_pe, inertia, inertia_pe, inv_inertia, inv_inertia_pe, E, B,
-                     n_qd, C, dt, ang_decay, gx, gy, gz, attach_ke, attach_kd);
+                     inv_m_pe, inertia, inertia_pe, inv_inertia, inv_inertia_pe, xp_t, xp_q,
+                     rp_local, xp_pe, E, B, n_qd, C, dt, ang_decay, gx, gy, gz, attach_ke,
+                     attach_kd);
   BwdArgs w;
   w.sstate = sstate; w.dq = dq; w.dqd = dqd; w.dbq0 = dbq0; w.dbqd0 = dbqd0;
   w.dtgt = dtgt; w.dact = dact; w.dres = dres; w.dplanes = dplanes; w.S = S;
   const Lists li = {adj_off, adj, c_off, n_adj};
-  const Plan p = make_plan(B, C, n_qd, n_adj, true, false);
+  const Plan p = make_plan(B, C, n_qd, n_adj, true, false, xp_t != nullptr);
   const int bytes = 4 * (p.cta + envs_per_cta * p.warp);
   static bool smem_cap_set[MAX_DEVICES];
   const int st = allow_dyn_smem(soa_interval_bwd_kernel, smem_cap_set);

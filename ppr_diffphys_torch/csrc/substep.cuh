@@ -101,6 +101,13 @@ struct Args {
   const float* __restrict__ inertia;      // (9, B, L)
   const float* __restrict__ inv_inertia;  // (9, B, L)
   int gains_pe, inv_m_pe, inertia_pe, inv_inertia_pe;
+  // live joint anchors (K2/K3 with_xp; null: body_f's columns): the joint
+  // whose child is body b has its parent anchor xp_t (3, B, L), xp_q
+  // (4, B, L) and rp_local = xp_t - com_parent (3, B, L); L = E when xp_pe
+  const float* __restrict__ xp_t;
+  const float* __restrict__ xp_q;
+  const float* __restrict__ rp_local;
+  int xp_pe;
   float* __restrict__ out_q;    // (F, E, B, 7) K1, (E, B, 7) K4, (7, B, E) K2
   float* __restrict__ out_qd;   // (F, E, B, 6) K1, (E, B, 6) K4, (6, B, E) K2
   float* __restrict__ out_grf;  // (F, E, B, 6) K1
@@ -118,6 +125,14 @@ __device__ __forceinline__ float plane(const float* p, int pe, int row, int b,
 struct Body {
   Q4 q;
   V3 t, w, v;
+};
+
+// A joint's parent anchor: translation and rotation in the parent's frame,
+// and the arm from the parent's centre of mass (xp_t - com_parent).
+struct Anchor {
+  V3 xpt;
+  Q4 xpq;
+  V3 rpl;
 };
 
 __device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
@@ -165,18 +180,18 @@ __device__ __forceinline__ void contact_wrench(const Body& bd, V3 com, const flo
 }
 
 // The joint law (pallas_soa.py:760-903) of a body's joint of type jt, with
-// the child's state c, the parent's state pb (read only when hp) and the
-// body's packed constants bf. `d` gives dof k's gains, target and
-// activation: d.ke(k), d.kd(k), d.tg(k), d.ac(k). The child's totals take
+// the child's state c, the parent's state pb (read only when hp), the
+// joint's parent anchor `an` and the body's packed constants bf. `d` gives
+// dof k's gains, target and activation: d.ke(k), d.kd(k), d.tg(k), d.ac(k). The child's totals take
 // -= (child_t, fj), the parent's += (parent_t, fj) (parent_t set when hp).
 template <class Drive>
 __device__ __forceinline__ void joint_wrench(const Args& a, int jt, bool hp, const Body& c,
-                                             const Body& pb, const float* bf, const Drive& d,
-                                             V3& child_t, V3& parent_t, V3& fj) {
+                                             const Body& pb, const Anchor& an, const float* bf,
+                                             const Drive& d, V3& child_t, V3& parent_t, V3& fj) {
   Q4 q_c = c.q;
   V3 t_c = c.t, w_c = c.w, v_c = c.v;
-  Q4 xpq = ld4(bf + 6);
-  V3 xpt = ld3(bf + 3);
+  Q4 xpq = an.xpq;
+  V3 xpt = an.xpt;
   Q4 X_wp_q = xpq;
   V3 X_wp_t = xpt, w_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f}, r_p = {0.f, 0.f, 0.f};
   if (hp) {
@@ -185,7 +200,7 @@ __device__ __forceinline__ void joint_wrench(const Args& a, int jt, bool hp, con
     X_wp_t = add(pb.t, qrot(pq, xpt));
     w_p = pb.w;
     v_p = pb.v;
-    r_p = qrot(pq, ld3(bf + 17));
+    r_p = qrot(pq, an.rpl);
   }
   V3 r_c = scale(qrot(q_c, ld3(bf + 14)), -1.0f);
   V3 x_err = sub(t_c, X_wp_t);

@@ -10,7 +10,8 @@
 //   packed constants (body_i, body_f with rows padded against bank
 //   conflicts, cbody/cf while C <= CF_SMEM_MAX, and the per-body lists
 //   below) are staged into shared memory. Each warp copies its env's
-//   parameter planes (shared lane-1 or per-env) into its own shared rows.
+//   parameter planes (shared lane-1 or per-env; K2/K3 with live joint
+//   anchors also the anchor planes) into its own shared rows.
 // - What lanes exchange goes through the warp's shared memory, with
 //   __syncwarp() between phases: a mirror of the body states, one slot per
 //   contact of the current chunk and one per joint for the wrench it
@@ -49,6 +50,12 @@
 #define PR_INV_M 6
 #define PR_INERTIA 7
 #define PR_INV_INERTIA 16
+// with live joint anchors (K2/K3 with_xp) the planes have 10 more rows:
+// xp_t 25-27, xp_q 28-31, rp_local 32-34
+#define N_PLANE_ROWS_XP 35
+#define PR_XP_T 25
+#define PR_XP_Q 28
+#define PR_RP_LOCAL 32
 
 #ifndef SOA_HOST_WARP
 #define LANES Lane& L  // a warp function's parameter: the calling lane
@@ -117,9 +124,11 @@ struct Plan {
   int cf_smem;
 };
 
-// `adjoint`: K3's parts; `res`: K2's double buffer of residual forces.
+// `adjoint`: K3's parts; `res`: K2's double buffer of residual forces;
+// `xp`: the anchor rows of the planes (and of their gradients).
 __host__ __device__ inline Plan make_plan(int B, int C, int n_qd, int n_adj, bool adjoint,
-                                          bool res) {
+                                          bool res, bool xp = false) {
+  const int rows = xp ? N_PLANE_ROWS_XP : N_PLANE_ROWS;
   Plan p;
   int o = 0;
   p.cf_smem = C <= CF_SMEM_MAX;
@@ -132,13 +141,13 @@ __host__ __device__ inline Plan make_plan(int B, int C, int n_qd, int n_adj, boo
   p.c_off = o; o += B + 1;
   p.cta = (o + 3) & ~3;
   int w = 0;
-  p.pl = w; w += N_PLANE_ROWS * B;              // planes [row][b]
+  p.pl = w; w += rows * B;                      // planes [row][b]
   p.mir = w; w += (adjoint ? 2 : 1) * 13 * B;   // body states [k][b] (K3: double buffer)
   p.seq = w; w += 2 * 2 * n_qd;                 // double buffer of (targets, acts) rows
   p.rs = w; w += res ? 2 * 6 * B : 0;           // double buffer of residual rows [k][b]
   p.cw = w; w += (adjoint ? 14 : 6) * CHUNK;    // contact slots [k][c - c0]
   p.jw = w; w += (adjoint ? 26 : 9) * B;        // joint slots [k][b]
-  p.dpl = w; w += adjoint ? N_PLANE_ROWS * B : 0;  // plane gradients [row][b]
+  p.dpl = w; w += adjoint ? rows * B : 0;       // plane gradients [row][b]
   p.dF = w; w += adjoint ? 6 * B : 0;           // torque/force cotangents [k][b]
   p.warp = (w + 3) & ~3;
   return p;
@@ -253,17 +262,39 @@ struct WarpDrive {
 
 // ---- per-lane phases ----------------------------------------------------
 
-// The warp's planes [row][b] for env e, from lane-1 or per-env planes.
+// Rows of the planes: 25, or 35 with live joint anchors.
+__device__ __forceinline__ int plane_rows(const Args& a) {
+  return a.xp_t ? N_PLANE_ROWS_XP : N_PLANE_ROWS;
+}
+
+// The warp's planes [row][b] for env e, from lane-1 or per-env planes: once
+// per launch, so a joint's live anchor is read from device memory once per
+// interval and from the warp's shared rows at every substep.
 __device__ __forceinline__ void load_planes(Lane& L, const Args& a, int e, float* pl) {
-  for (int i = L.lane; i < N_PLANE_ROWS * a.B; i += 32) {
+  for (int i = L.lane; i < plane_rows(a) * a.B; i += 32) {
     const int r = i / a.B, b = i - r * a.B;
     float v;
     if (r < PR_INV_M) v = plane(a.gains, a.gains_pe, r, b, e, a.B, a.E);
     else if (r == PR_INV_M) v = plane(a.inv_m, a.inv_m_pe, 0, b, e, a.B, a.E);
     else if (r < PR_INV_INERTIA) v = plane(a.inertia, a.inertia_pe, r - PR_INERTIA, b, e, a.B, a.E);
-    else v = plane(a.inv_inertia, a.inv_inertia_pe, r - PR_INV_INERTIA, b, e, a.B, a.E);
+    else if (r < PR_XP_T) v = plane(a.inv_inertia, a.inv_inertia_pe, r - PR_INV_INERTIA, b, e, a.B, a.E);
+    else if (r < PR_XP_Q) v = plane(a.xp_t, a.xp_pe, r - PR_XP_T, b, e, a.B, a.E);
+    else if (r < PR_RP_LOCAL) v = plane(a.xp_q, a.xp_pe, r - PR_XP_Q, b, e, a.B, a.E);
+    else v = plane(a.rp_local, a.xp_pe, r - PR_RP_LOCAL, b, e, a.B, a.E);
     pl[i] = v;
   }
+}
+
+// The parent anchor of body b's joint: the warp's anchor rows when the
+// anchors are live, else body_f's columns (xp_t 3-5, xp_q 6-9, rp_local
+// 17-19).
+__device__ __forceinline__ Anchor anchor_of(const Args& a, const float* pl, const float* bf,
+                                            int b, int B) {
+  if (!a.xp_t) return {ld3(bf + 3), ld4(bf + 6), ld3(bf + 17)};
+  const float* r = pl + b;
+  return {{r[PR_XP_T * B], r[(PR_XP_T + 1) * B], r[(PR_XP_T + 2) * B]},
+          {r[PR_XP_Q * B], r[(PR_XP_Q + 1) * B], r[(PR_XP_Q + 2) * B], r[(PR_XP_Q + 3) * B]},
+          {r[PR_RP_LOCAL * B], r[(PR_RP_LOCAL + 1) * B], r[(PR_RP_LOCAL + 2) * B]}};
 }
 
 // ---- the caller's layout: state (E,B,7)/(E,B,6), targets (S,E,n_qd) (K1, K4)
@@ -335,8 +366,9 @@ __device__ __forceinline__ void joint_slot(Lane& L, const Args& a, const Consts&
   const int p = bi[0];
   const bool hp = p >= 0;
   V3 ct, pt, fj;
-  joint_wrench(a, jt, hp, L.s, hp ? mirror_get(mir, p, B) : L.s, k.bf + b * BF_STRIDE,
-               WarpDrive{pl, bi, row, a.act ? row + a.n_qd : nullptr, b, B}, ct, pt, fj);
+  const float* bf = k.bf + b * BF_STRIDE;
+  joint_wrench(a, jt, hp, L.s, hp ? mirror_get(mir, p, B) : L.s, anchor_of(a, pl, bf, b, B),
+               bf, WarpDrive{pl, bi, row, a.act ? row + a.n_qd : nullptr, b, B}, ct, pt, fj);
   jw[b] = ct.x; jw[B + b] = ct.y; jw[2 * B + b] = ct.z;
   if (hp) {
     jw[3 * B + b] = pt.x; jw[4 * B + b] = pt.y; jw[5 * B + b] = pt.z;

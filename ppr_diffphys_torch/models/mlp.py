@@ -1,5 +1,5 @@
 """Time-conditioned MLPs (PyTorch), counterpart of
-``ppr_diffphys_tpu/models/mlp.py`` (serving subset).
+``ppr_diffphys_tpu/models/mlp.py``.
 
 - ``posenc``: Fourier embedding with the optional cosine annealing window;
 - ``TimeMLP``: TimeEmbedding (fourier -> linear, concat per-video instance
@@ -9,11 +9,15 @@
   ``linear_<i>.0.*``, ``linear_final.0.*``, ``head.0.*``), so the keys
   written by ``ppr_diffphys_tpu.models.torch_adapter.timemlp_state_to_torch``
   load directly;
+- ``CameraMLP``: the same embedding and trunk with SE(3)-valued heads
+  (``trans``, ``quat``) and per-video base quaternions (``CameraMLPFlax``),
+  and ``fit_camera_mlp``, its Adam fit to per-frame SE(3) priors;
 - ``FrameSampler``: raw (possibly fractional) frame ids -> normalized time
   and video id on the device;
 - ``timemlp_params_from_jax``: a flax TimeMLP parameter tree of numpy
   arrays (as the JAX package pickles it) -> a ``TimeMLP`` state dict, and
-  ``timemlp_params_to_jax`` the other way; ``jax_param_path`` names each
+  ``timemlp_params_to_jax`` the other way (``cameramlp_params_from_jax`` /
+  ``cameramlp_params_to_jax`` for CameraMLP); ``jax_param_path`` names each
   tensor by its flax path (the JAX package's per-tensor names).
 """
 
@@ -125,41 +129,163 @@ class TimeEmbedding(nn.Module):
         return self.mapping2(torch.cat([coeff, inst_code], dim=-1))
 
 
-class TimeMLP(nn.Module):
-    """Time embedding -> D-layer ReLU trunk with skip concats (final ReLU)
-    -> head, scaled by ``output_scale``. Defaults D=5, W=256,
-    skips=(1,2,3,4)."""
+class _TimeTrunk(nn.Module):
+    """Time embedding -> D-layer ReLU trunk with skip concats and a final
+    ReLU layer (the trunk TimeMLP and CameraMLP share). Defaults D=5,
+    W=256, skips=(1,2,3,4)."""
 
-    def __init__(self, num_freq_t: int, num_inst: int, out_channels: int,
-                 D: int = 5, W: int = 256, skips: Sequence[int] = (1, 2, 3, 4),
-                 output_scale: float = 1.0, generator: Optional[torch.Generator] = None):
+    def __init__(self, num_freq_t: int, num_inst: int, D: int = 5, W: int = 256,
+                 skips: Sequence[int] = (1, 2, 3, 4)):
         super().__init__()
         self.D, self.W = D, W
         self.skips = tuple(skips)
-        self.output_scale = output_scale
         self.time_embedding = TimeEmbedding(num_freq_t, num_inst, W)
         for i in range(D):
             in_ch = 2 * W if i in self.skips else W
             setattr(self, "linear_%d" % (i + 1), nn.Sequential(nn.Linear(in_ch, W)))
         self.linear_final = nn.Sequential(nn.Linear(W, W))
-        self.head = nn.Sequential(nn.Linear(W, out_channels))
-        if generator is not None:
-            for m in self.modules():
-                if isinstance(m, nn.Linear):
-                    _init_linear(m, generator)
-                elif isinstance(m, nn.Embedding):
-                    with torch.no_grad():
-                        m.weight.normal_(0.0, 1.0, generator=generator)
 
-    def forward(self, t_sample: torch.Tensor, inst_id: torch.Tensor) -> torch.Tensor:
+    def _init(self, generator: Optional[torch.Generator]):
+        if generator is None:
+            return
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                _init_linear(m, generator)
+            elif isinstance(m, nn.Embedding):
+                with torch.no_grad():
+                    m.weight.normal_(0.0, 1.0, generator=generator)
+
+    def features(self, t_sample: torch.Tensor, inst_id: torch.Tensor) -> torch.Tensor:
         x = self.time_embedding(t_sample, inst_id)
         out = x
         for i in range(self.D):
             if i in self.skips:
                 out = torch.cat([x, out], dim=-1)
             out = torch.relu(getattr(self, "linear_%d" % (i + 1))(out))
-        feat = torch.relu(self.linear_final(out))
-        return self.head(feat) * self.output_scale
+        return torch.relu(self.linear_final(out))
+
+
+class TimeMLP(_TimeTrunk):
+    """The trunk -> head, scaled by ``output_scale``."""
+
+    def __init__(self, num_freq_t: int, num_inst: int, out_channels: int,
+                 D: int = 5, W: int = 256, skips: Sequence[int] = (1, 2, 3, 4),
+                 output_scale: float = 1.0, generator: Optional[torch.Generator] = None):
+        super().__init__(num_freq_t, num_inst, D, W, skips)
+        self.output_scale = output_scale
+        self.head = nn.Sequential(nn.Linear(W, out_channels))
+        self._init(generator)
+
+    def forward(self, t_sample: torch.Tensor, inst_id: torch.Tensor) -> torch.Tensor:
+        return self.head(self.features(t_sample, inst_id)) * self.output_scale
+
+
+def _quat_mul_wxyz(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def _unit(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-8)
+
+
+class CameraMLP(_TimeTrunk):
+    """SE(3)-valued time MLP with per-video base rotations (CameraMLPFlax,
+    reference CameraMLPWrapper): the trunk -> ``trans`` (3) and ``quat``
+    (4, normalized) heads, the quaternion composed with the video's
+    normalized ``base_quat`` (wxyz, initialized to identity). Returns
+    (quat wxyz, trans)."""
+
+    def __init__(self, num_freq_t: int, num_inst: int, D: int = 5, W: int = 256,
+                 skips: Sequence[int] = (1, 2, 3, 4),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(num_freq_t, num_inst, D, W, skips)
+        self.trans = nn.Linear(W, 3)
+        self.quat = nn.Linear(W, 4)
+        self.base_quat = nn.Parameter(torch.tensor([[1.0, 0.0, 0.0, 0.0]]).repeat(num_inst, 1))
+        self._init(generator)
+
+    def forward(self, t_sample: torch.Tensor, inst_id: torch.Tensor):
+        feat = self.features(t_sample, inst_id)
+        trans = self.trans(feat)
+        quat = _unit(self.quat(feat))
+        quat = _quat_mul_wxyz(quat, _unit(self.base_quat[inst_id]))
+        return quat, trans
+
+
+def module_params(module: nn.Module) -> dict:
+    """A module's tensors as a plain dict (state-dict keys -> detached
+    copies): the parameter trees the fields keep apart from their modules
+    and evaluate with ``torch.func.functional_call``."""
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def camera_matrix(quat_wxyz: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternion and (..., 3) translation -> (..., 4, 4) SE(3)
+    with the normalized quaternion's rotation."""
+    from ..ops import quat_normalize, quat_to_matrix
+
+    q = torch.cat([quat_wxyz[..., 1:], quat_wxyz[..., :1]], -1)
+    return se3_matrix(quat_to_matrix(quat_normalize(q)), trans)
+
+
+def se3_matrix(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation and (..., 3) translation -> (..., 4, 4) (the JAX
+    package writes these with ``.at[].set`` on a zero matrix)."""
+    top = torch.cat([rot, trans[..., None]], -1)
+    bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype, device=top.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], -2)
+
+
+def fit_camera_mlp(module: CameraMLP, params: dict, sampler: "FrameSampler", rtmat,
+                   lr: float = 1e-3, termination_loss: float = 1e-4,
+                   max_iters: int = 5000) -> dict:
+    """Fit a CameraMLP's parameters (a ``module_params`` dict) to per-frame
+    SE(3) priors rtmat (N,4,4) over all raw frames (fit_camera_mlp of the
+    JAX package, reference TimeMLP.mlp_init + CameraMLPWrapper.base_init):
+    ``base_quat`` from each video's first frame, then Adam on the mean
+    squared error of the 4x4 matrices. The loss is read on the host once
+    per chunk of 100 iterations (its last iteration's), where the fit stops
+    below ``termination_loss``; the budget rounds up to whole chunks
+    (max_iters=250 runs 300). Returns the fitted parameter dict."""
+    from ..ops import matrix_to_quat
+
+    CHUNK = 100
+    dev = next(iter(params.values())).device
+    rtmat = torch.as_tensor(rtmat, dtype=torch.float32, device=dev)
+    n = rtmat.shape[0]
+    frame_ids = torch.arange(n, dtype=torch.float32, device=dev)
+    t, vid = sampler.frame_to_tid(frame_ids), sampler.frame_to_vid(frame_ids)
+    starts = torch.as_tensor(np.asarray(sampler.offsets[:-1]), dtype=torch.long, device=dev)
+    base_xyzw = matrix_to_quat(rtmat[starts, :3, :3])
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    with torch.no_grad():
+        p["base_quat"].copy_(torch.cat([base_xyzw[..., 3:4], base_xyzw[..., 0:3]], -1))
+    opt = torch.optim.Adam(list(p.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def loss_fn():
+        quat, trans = torch.func.functional_call(module, p, (t, vid))
+        return torch.mean((camera_matrix(quat, trans) - rtmat) ** 2)
+
+    for _ in range(max(1, -(-max_iters // CHUNK))):
+        for _ in range(CHUNK):
+            loss = loss_fn()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+        if float(loss.detach()) < termination_loss:
+            break
+    return {k: v.detach() for k, v in p.items()}
 
 
 def _dense(p, key: str) -> dict:
@@ -183,7 +309,19 @@ def timemlp_params_from_jax(np_tree) -> dict:
     )
     for k, v in np_tree["trunk"].items():
         sd.update(_dense(v, k + ".0"))
-    sd.update(_dense(np_tree["head"], "head.0"))
+    if "head" in np_tree:
+        sd.update(_dense(np_tree["head"], "head.0"))
+    return sd
+
+
+def cameramlp_params_from_jax(np_tree) -> dict:
+    """Flax CameraMLP params -> CameraMLP state dict: the TimeMLP layout
+    without ``head``, the ``trans`` and ``quat`` Dense heads and
+    ``base_quat`` (V, 4) as it is."""
+    sd = timemlp_params_from_jax(np_tree)
+    sd.update(_dense(np_tree["trans"], "trans"))
+    sd.update(_dense(np_tree["quat"], "quat"))
+    sd["base_quat"] = torch.as_tensor(np.asarray(np_tree["base_quat"], np.float32).copy())
     return sd
 
 
@@ -192,23 +330,28 @@ def jax_param_path(torch_key: str):
     ``weight`` is the transposed ``kernel``; trunk layers live under
     ``trunk``."""
     parts = torch_key.split(".")
+    if parts[0] == "base_quat":
+        return ("base_quat",), False
     if parts[0] == "time_embedding":
         if parts[1] == "inst_embedding":
             return ("time_embedding", "inst_embedding", "embedding"), False
         mod = ("time_embedding", parts[1])
-    elif parts[0] == "head":
-        mod = ("head",)
+    elif parts[0] in ("head", "trans", "quat"):
+        mod = (parts[0],)
     else:  # linear_<i>.0 / linear_final.0
         mod = ("trunk", parts[0])
     leaf = parts[-1]
     return mod + ("kernel" if leaf == "weight" else "bias",), leaf == "weight"
 
 
-def timemlp_params_to_jax(module: TimeMLP) -> dict:
-    """A ``TimeMLP``'s tensors as the flax parameter tree of numpy arrays
-    that the JAX package pickles (inverse of ``timemlp_params_from_jax``)."""
+def timemlp_params_to_jax(module) -> dict:
+    """A ``TimeMLP``'s (or ``CameraMLP``'s) tensors, or its ``module_params``
+    dict, as the flax parameter tree of numpy arrays that the JAX package
+    pickles (inverse of ``timemlp_params_from_jax`` and
+    ``cameramlp_params_from_jax``)."""
+    sd = module.state_dict() if isinstance(module, nn.Module) else module
     tree = {}
-    for k, v in module.state_dict().items():
+    for k, v in sd.items():
         path, transposed = jax_param_path(k)
         a = v.detach().cpu().numpy()
         node = tree
@@ -216,3 +359,6 @@ def timemlp_params_to_jax(module: TimeMLP) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.array(a.T if transposed else a, order="C", copy=True)
     return tree
+
+# a CameraMLP carries across the same way
+cameramlp_params_to_jax = timemlp_params_to_jax

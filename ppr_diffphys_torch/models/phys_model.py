@@ -17,7 +17,15 @@ package's checkpoint layout (flax-layout MLP trees), so checkpoints move
 between the two packages both ways. Eval (``is_eval``) runs the window
 without gradient through ``sim/soa.py:SoaWindow`` (K1 on CUDA).
 
-Not here: multi-device placement, the lab4d ``joint_X_p`` override, orbax.
+The lab4d coupling (``models/interface.py:phys_interface``) subclasses it
+through the same hooks as the JAX package: ``preset_data``/``_finish_data``,
+``get_batch_input`` with a per-env ``joint_X_p`` (live joint anchors, which
+FK, the initial state and the rollout honour; the rollout takes them as the
+interval kernels' ``with_xp`` planes, and the eval forward then chains the
+no-gradient interval instead of the window, which has no anchor planes),
+``_distill_loss``, ``_extend_aux`` and ``get_camera``.
+
+Not here: multi-device placement, orbax.
 """
 
 from __future__ import annotations
@@ -106,6 +114,10 @@ class phys_model:
     device), reinit_envs, forward, backward, update, query,
     save/load_checkpoint, check_grad, clear_grad, plus
     load_params_from_jax."""
+
+    # True on subclasses whose batches carry a live joint_X_p (the lab4d
+    # interface's query_ja): the rollout then runs the with_xp interval
+    has_live_xp = False
 
     def __init__(self, opts, dataloader, dt=5e-4, device=None):
         self.opts = opts
@@ -301,7 +313,7 @@ class phys_model:
         b = self.amp_table[torch.clamp(i0 + 1, max=T - 1)]
         return a + (b - a) * frac[..., None]
 
-    def _sim_params(self, params=None):
+    def _sim_params(self, params=None, joint_X_p=None):
         params = self.params if params is None else params
         body_mass = params["body_mass"]
         inertia = self.norm_body_inertia * body_mass[:, None, None]
@@ -312,6 +324,7 @@ class phys_model:
             body_inv_inertia=torch.linalg.inv(inertia),
             joint_target_ke=params["target_ke"],
             joint_target_kd=params["target_kd"],
+            joint_X_p=joint_X_p,
         )
 
     def get_batch_input(self, params, steps_fr):
@@ -409,17 +422,19 @@ class phys_model:
     # ------------------------------------------------------------------
     # forward (reference dp_model.py:664-838)
     # ------------------------------------------------------------------
-    def fk_pos_vel(self, q7, ja, qd6, jad):
+    def fk_pos_vel(self, q7, ja, qd6, jad, joint_X_p=None):
         """FK of [root 7 + joint angles] with velocities given in ppr
-        layout (reference dp_model.py:588-603). Inputs (..., .)."""
+        layout (reference dp_model.py:588-603). Inputs (..., .); joint_X_p
+        an optional anchor override broadcastable to (..., B, 7)."""
         joint_q = torch.cat([q7, ja], -1)
         joint_qd = swap_lin_ang(torch.cat([qd6, jad], -1))
-        body_q, body_qd = eval_fk(self.env, joint_q, joint_qd)
+        body_q, body_qd = eval_fk(self.env, joint_q, joint_qd, joint_X_p=joint_X_p)
         return body_q, swap_lin_ang(body_qd)
 
-    def _interval(self):
-        """The differentiable frame interval (built once per integrator)."""
-        key = ("interval", id(self.integrator), self.steps_per_fr_interval)
+    def _interval(self, with_xp=False):
+        """The differentiable frame interval (built once per integrator),
+        with the live anchor planes when ``with_xp``."""
+        key = ("interval", id(self.integrator), self.steps_per_fr_interval, with_xp)
         if key not in self._kernels:
             self._kernels[key] = make_diff_interval(
                 self.integrator, self.dt, self.steps_per_fr_interval,
@@ -427,6 +442,7 @@ class phys_model:
                 # zero (reference dp_model.py:529/:536)
                 with_res=bool(self.opts.get("soa_with_res", False)),
                 with_act=bool(self.opts.get("soa_with_act", False)),
+                with_xp=with_xp,
             )
         return self._kernels[key]
 
@@ -455,12 +471,15 @@ class phys_model:
         outseq = (vidid[:, :1] - vidid) != 0
 
         batch = self.get_batch_input(params, steps_fr)
+        # the lab4d interface's per-env joint anchors (E, B, 7), or None
+        xp = batch.get("joint_X_p")
         stk = lambda a, b: torch.stack([a[:, f2s], b[:, f2s]], 0)
         both_position, both_velocity = self.fk_pos_vel(
             stk(batch["target_q"], batch["queried_q"]),
             stk(batch["target_ja"], batch["queried_ja"]),
             stk(batch["target_qd"], batch["queried_qd"][..., :6]),
             stk(batch["target_jad"], batch["queried_qd"][..., 6:]),
+            joint_X_p=None if xp is None else xp[None, :, None],  # over (2, E, F)
         )
         target_position, queried_position = both_position[0], both_position[1]
         queried_velocity = both_velocity[1]
@@ -475,7 +494,7 @@ class phys_model:
             noise[:, 3:7] *= 5.0
             q_init = q_init + noise
         qd_init = swap_lin_ang(batch["queried_qd"][:, 0])
-        body_q0, body_qd0 = eval_fk(self.env, q_init, qd_init)
+        body_q0, body_qd0 = eval_fk(self.env, q_init, qd_init, joint_X_p=xp)
         state0 = SimState(body_q0, body_qd0)
 
         # control reference at every substep: zeros(6) + queried joint
@@ -485,7 +504,7 @@ class phys_model:
         torques = torch.cat([zeros6, batch["torques"]], -1).transpose(0, 1)
         res_f = swap_lin_ang(batch["res_f"]).transpose(0, 1)  # (S,E,B,6)
 
-        sp = self._sim_params(params)
+        sp = self._sim_params(params, joint_X_p=xp)
         quirks = bool(self.opts.get("ref_quirks", False))
         if is_train:
             # gradient scrubbing at the rollout boundary (reference
@@ -493,8 +512,15 @@ class phys_model:
             scrub = scrub_grad_ref if quirks else scrub_grad
             sim_q, sim_qd, grfs, jafs = rollout_soa(
                 self.integrator, sp, state0, scrub(ref_ja), scrub(torques),
-                scrub(res_f), self.dt, sub, interval_fn=self._interval(),
+                scrub(res_f), self.dt, sub, interval_fn=self._interval(xp is not None),
             )
+        elif xp is not None:
+            # live anchors: the window (K1) has no anchor planes, so the eval
+            # chains the with_xp interval without gradient (K2 alone on CUDA)
+            with torch.no_grad():
+                sim_q, sim_qd, grfs, jafs = rollout_soa(
+                    self.integrator, sp, state0, ref_ja, None, None, self.dt, sub,
+                    interval_fn=self._interval(True))
         else:
             # torques and residual forces are structurally zero: the window
             # takes acts as None and has no residual input
@@ -515,7 +541,7 @@ class phys_model:
         loss_dict["pos_state"] = reduce_loss(torch.where(outseq, zero, loss_pos))
         loss_vel = se3_loss(queried_velocity, sim_velocity.detach()).mean(-1)
         loss_dict["vel_state"] = reduce_loss(torch.where(outseq, zero, loss_vel))
-        loss_dict["pos_distill"] = zero  # the lab4d coupling's distillation
+        loss_dict["pos_distill"] = self._distill_loss(params, steps_fr, sim_position, outseq)
         loss_dict["reg_torque"] = torch.mean(batch["torques"] ** 2)
         loss_dict["reg_res_f"] = torch.mean(batch["res_f"] ** 2)
         loss_dict["reg_foot"] = torch.mean(foot_height ** 2)
@@ -532,7 +558,18 @@ class phys_model:
             grf=grfs[:, 0],  # warp layout [torque, force]
             jaf=jafs[:, 0],
         )
+        aux = self._extend_aux(aux, params, batch, steps_fr, sim_position)
         return out, aux
+
+    def _extend_aux(self, aux, params, batch, steps_fr, sim_position):
+        """Hook for subclasses to add eval observables (cameras, distilled
+        trajectories)."""
+        return aux
+
+    def _distill_loss(self, params, steps_fr, sim_position, outseq):
+        """pos_distill (reference dp_model.py:800-804): zero in mocap mode,
+        the lab4d interface's distillation otherwise."""
+        return torch.zeros((), dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------
     # host-side train loop API (reference method surface)
@@ -570,16 +607,22 @@ class phys_model:
                 out, aux = self._forward_pure(self.params, frame_start, self.progress, w, False)
             self._store_eval_aux(aux)
             return out
-        tensors = [t for _, t in self._trainable]
-        for k in PARAM_NAMES:
-            self.params[k].requires_grad_(True)
+        # every tensor's gradient, frozen ones too, as jax.grad gives them
+        # (``last_grads``); the update takes the trainable ones
+        named = self.named_tensors()
+        tensors = [t for _, t in named]
+        leaves = [t for t in tensors if not isinstance(t, nn.Parameter)]
+        for t in leaves:
+            t.requires_grad_(True)
         try:
             out, _ = self._forward_pure(self.params, frame_start, self.progress, w, True)
             grads = torch.autograd.grad(out["total_loss"], tensors, allow_unused=True)
         finally:
-            for k in PARAM_NAMES:
-                self.params[k].requires_grad_(False)
-        grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, tensors)]
+            for t in leaves:
+                t.requires_grad_(False)
+        self.last_grads = {n: torch.zeros_like(t) if g is None else g
+                           for (n, t), g in zip(named, grads)}
+        grads = [self.last_grads[n] for n, _ in self._trainable]
         # per-tensor norms over trainable tensors: the reference's grad queue
         # keys are per named parameter (dp_model.py:969-975)
         norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
@@ -828,6 +871,14 @@ class phys_model:
         for name in ("ckpt_phys_%04d.pth" % steps_count, "ckpt_phys_latest.pth"):
             with open(os.path.join(self.save_dir, name), "wb") as f:
                 pickle.dump(save_dict, f)
+
+    def get_camera(self):
+        """World-to-view matrices with the intrinsics packed into row 3
+        (reference dp_model.py:904-910); the matrices come from the lab4d
+        interface's eval forward (``phys_interface._store_eval_aux``)."""
+        w2v = self.world2view_vis.copy()
+        w2v[..., 3, :] = self.ks_vis
+        return w2v
 
     # ------------------------------------------------------------------
     # query for visualization (reference dp_model.py:843-902)

@@ -161,13 +161,17 @@ def eval_body_contacts(model: ArticulationModel, params: SimParams, state: SimSt
 
 def eval_body_joints(model: ArticulationModel, params: SimParams, state: SimState,
                      joint_target: torch.Tensor,
-                     joint_act: Optional[torch.Tensor], gains3=None):
+                     joint_act: Optional[torch.Tensor], gains3=None, rp_local=None):
     """Joint PD + limit + attachment-spring forces over (E, B). Joint i
     connects parent[i] -> body i; FREE roots contribute nothing.
 
     joint_target/joint_act: (E, n_qd); joint_act None means zero.
     gains3: optional (ke, kd) per joint angle, (B, 3) or (E, B, 3), in place
     of ``params.joint_target_ke/kd`` (the kernels' gains plane layout).
+    rp_local: optional (B, 3) or (E, B, 3) anchor arm from the parent's COM
+    (the interval kernels' ``rp_local`` plane); the parent arm is then
+    ``quat_rotate(parent rotation, rp_local)`` instead of the anchor's world
+    point less the parent's world COM.
     Returns (E, B, 6) accumulated [torque, force]."""
     dev = state.body_q.device
     E, B = state.body_q.shape[0], model.n_links
@@ -188,8 +192,11 @@ def eval_body_joints(model: ArticulationModel, params: SimParams, state: SimStat
     # bodies with no parent: X_wp = X_pj alone
     X_wp = has_parent * X_wp + (1.0 - has_parent) * X_p_b.expand(E, B, 7)
 
-    com_p = com[ps]
-    r_p = X_wp[..., 0:3] - transform_point(pq, com_p)
+    if rp_local is None:
+        com_p = com[ps]
+        r_p = X_wp[..., 0:3] - transform_point(pq, com_p)
+    else:
+        r_p = quat_rotate(pq[..., 3:7], rp_local if rp_local.ndim == 3 else rp_local[None])
     r_p = r_p * has_parent
     w_p = pqd[..., 0:3] * has_parent
     v_p = pqd[..., 3:6] * has_parent
@@ -355,7 +362,7 @@ class SemiImplicitIntegrator:
         self.model = model
 
     def compute_forces(self, params, state, joint_target, joint_act, res_f,
-                       gains3=None):
+                       gains3=None, rp_local=None):
         """Returns (body_f, grf, jaf): grf is the accumulated force after
         contacts (incl. residual forces), jaf the joint-only increment."""
         model = self.model
@@ -366,7 +373,7 @@ class SemiImplicitIntegrator:
             body_f = body_f + eval_body_contacts(model, params, state)
         grf = body_f
         body_f = body_f + eval_body_joints(model, params, state, joint_target, joint_act,
-                                           gains3)
+                                           gains3, rp_local)
         jaf = body_f - grf
         return body_f, grf, jaf
 
@@ -377,10 +384,11 @@ class SemiImplicitIntegrator:
         )
         return integrate_bodies(self.model, params, state, body_f, dt), grf, jaf
 
-    def step_only(self, params, state, joint_target, joint_act, res_f, dt, gains3=None):
+    def step_only(self, params, state, joint_target, joint_act, res_f, dt, gains3=None,
+                  rp_local=None):
         """Substep without observables."""
         body_f, _, _ = self.compute_forces(
-            params, state, joint_target, joint_act, res_f, gains3
+            params, state, joint_target, joint_act, res_f, gains3, rp_local
         )
         return integrate_bodies(self.model, params, state, body_f, dt)
 
@@ -452,11 +460,17 @@ def rollout_substeps(integrator: SemiImplicitIntegrator, params: SimParams,
     return state
 
 
-def plane_params(gains, inv_m, inertia, inv_inertia, E: int):
+def _plane_aos(p, E: int):
+    """A (k,B,L) plane as (E,B,k) per-env or (B,k) shared."""
+    return p.permute(2, 1, 0) if p.shape[-1] == E and E > 1 else p[..., 0].T
+
+
+def plane_params(gains, inv_m, inertia, inv_inertia, E: int, xp_t=None, xp_q=None):
     """The traced parameter planes (``sim/soa.py:traced_planes`` layout,
     lane 1 shared or lane E per-env) as the arguments the plain substep
     takes: (SimParams with inverse mass and inertias, (ke, kd) per joint
-    angle). Differentiable."""
+    angle). With the anchor planes xp_t and xp_q the SimParams carry
+    ``joint_X_p`` (B,7) or (E,B,7). Differentiable."""
     def per_env(p):
         return p.shape[-1] == E and E > 1
 
@@ -469,26 +483,31 @@ def plane_params(gains, inv_m, inertia, inv_inertia, E: int):
     def mat(p):  # (3,3,B,L) -> (E,B,3,3) | (B,3,3)
         return p.permute(3, 2, 0, 1) if per_env(p) else p[..., 0].permute(2, 0, 1)
 
+    xp = None if xp_t is None else torch.cat([_plane_aos(xp_t, E), _plane_aos(xp_q, E)], -1)
     params = SimParams(
         body_mass=None, body_inv_mass=im, body_inertia=mat(inertia),
         body_inv_inertia=mat(inv_inertia), joint_target_ke=None, joint_target_kd=None,
+        joint_X_p=xp,
     )
     return params, (ke3, kd3)
 
 
 def interval(integrator: SemiImplicitIntegrator, dt: float, bq, bqd, tgt, act, res,
-             gains, inv_m, inertia, inv_inertia, export: bool = False):
+             gains, inv_m, inertia, inv_inertia, xp_t=None, xp_q=None, rp_local=None,
+             export: bool = False):
     """One frame interval of S substeps in the kernels' plane layout: the
     plain version of ``csrc/soa_interval.cu`` (K2 forward; autograd through
     it is K3's plain version).
 
     bq (7,B,E), bqd (6,B,E), tgt (S,n_qd,E), act (S,n_qd,E) or None (zero),
-    res (S,6,B,E) [torque, force] or None (zero), and the four parameter
-    planes. Returns (bq', bqd'); with ``export``, also the state entering
-    each substep, detached, in K2's export layout (S,E,13,B): q then qd,
-    each [k][b]."""
+    res (S,6,B,E) [torque, force] or None (zero), the four parameter
+    planes and, for live joint anchors (the kernels' ``with_xp``), the three
+    anchor planes xp_t, xp_q, rp_local. Returns (bq', bqd'); with
+    ``export``, also the state entering each substep, detached, in K2's
+    export layout (S,E,13,B): q then qd, each [k][b]."""
     E = bq.shape[-1]
-    params, gains3 = plane_params(gains, inv_m, inertia, inv_inertia, E)
+    params, gains3 = plane_params(gains, inv_m, inertia, inv_inertia, E, xp_t, xp_q)
+    rpl = None if rp_local is None else _plane_aos(rp_local, E)
     state = SimState(bq.permute(2, 1, 0), bqd.permute(2, 1, 0))
     entries = []
     for i in range(tgt.shape[0]):
@@ -498,7 +517,7 @@ def interval(integrator: SemiImplicitIntegrator, dt: float, bq, bqd, tgt, act, r
             params, state, tgt[i].T,
             None if act is None else act[i].T,
             None if res is None else res[i].permute(2, 1, 0),
-            dt, gains3,
+            dt, gains3, rpl,
         )
     out = state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0)
     return out + (torch.stack(entries, 0).contiguous(),) if export else out

@@ -150,8 +150,8 @@ def eval_fk(
         )
 
     X_p_all = _const(model.joint_X_p, joint_q) if joint_X_p is None else joint_X_p
-    if X_p_all.ndim == 2:
-        X_p_all = X_p_all.expand(batch + X_p_all.shape)
+    if X_p_all.shape[:-2] != batch:  # (B,7) or a broadcastable (..., B, 7)
+        X_p_all = X_p_all.expand(batch + X_p_all.shape[-2:])
     com_all = _const(model.body_com, joint_q) if body_com is None else body_com
 
     q_local, p_local = _local_joint_quats(model, joint_q)

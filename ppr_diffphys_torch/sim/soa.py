@@ -1,7 +1,7 @@
 """The serving window (the whole forward window of frame intervals in one
 CUDA launch) and the bench rollout (S substeps, final state only),
 counterpart of ``ppr_diffphys_tpu/sim/pallas_soa.py`` (``build_soa_static``,
-``traced_planes``, ``build_soa_window``, ``build_soa_rollout``).
+``traced_planes``, ``xp_planes``, ``build_soa_window``, ``build_soa_rollout``).
 
 - :func:`soa_static` builds the per-model constant tensors once. The
   plane-layout arrays keep the JAX names and shapes (``axis_c``, ``xp_q``,
@@ -9,10 +9,14 @@ counterpart of ``ppr_diffphys_tpu/sim/pallas_soa.py`` (``build_soa_static``,
   tables (``parent``, ``joint_type``, ``dof_idx``, ``contact_body``)
   instead of the TPU kernel's one-hot matrices.
 - :func:`traced_planes` lays the per-call parameters out as planes,
-  shared (lane 1) or per-env (lane E), exactly as the JAX function does.
+  shared (lane 1) or per-env (lane E), exactly as the JAX function does,
+  with the live joint-anchor planes of :func:`xp_planes` when
+  ``params.joint_X_p`` is set (the interval kernels' ``with_xp``).
 - :class:`SoaWindow` is the wrapper: CPU tensors take the plain PyTorch
   version (``integrator.rollout``); CUDA tensors launch
-  ``csrc/soa_window.cu`` or raise. It never falls back.
+  ``csrc/soa_window.cu`` or raise. It never falls back. Like the JAX K1 it
+  takes no anchor or COM planes: a live ``joint_X_p`` or ``body_com``
+  raises on either device.
 - :class:`SoaRollout` (:func:`build_soa_rollout`) is the bench rollout's
   wrapper, with the parameters baked in as lane-1 planes: CPU tensors take
   ``integrator.rollout_substeps``; CUDA tensors launch
@@ -42,6 +46,8 @@ from .integrator import (
 KERNEL = "soa_window"
 KERNEL_ROLLOUT = "soa_rollout"
 TRACED_NAMES = ("gains", "inv_m", "inertia", "inv_inertia")
+# the live joint-anchor planes (pallas_soa.py:328 XP_NAMES)
+XP_NAMES = ("xp_t", "xp_q", "rp_local")
 # The kernels hold 1, 2, 4 or 8 consecutive envs per CTA, one per warp.
 # MIN_CTAS is the largest power of two not above the H100's 132 SMs, so
 # that power-of-two widths (512, 4096) give whole CTAs.
@@ -144,11 +150,32 @@ def pack_static(static: dict) -> dict:
     )
 
 
+def xp_planes(model, joint_X_p) -> dict:
+    """Plane layout of a joint-anchor override (pallas_soa.py:331-346):
+    ``joint_X_p`` (B,7) gives lane-1 planes, (E,B,7) lane-E planes:
+    ``xp_t`` (3,B,L), ``xp_q`` (4,B,L) and ``rp_local = xp_t - com_parent``
+    (3,B,L), the arm from the parent's centre of mass that the joint sweep
+    rotates into the world frame. Differentiable in ``joint_X_p``;
+    ``com_parent`` is the model's, a constant."""
+    parent = model.joint_parent
+    parent_safe = np.where(parent >= 0, parent, 0)
+    com_parent = torch.as_tensor(np.ascontiguousarray(model.body_com[parent_safe].T[:, :, None]),
+                                 dtype=torch.float32, device=joint_X_p.device)
+    xp = joint_X_p.to(torch.float32)
+    if xp.ndim == 2:  # (B,7) -> lane 1
+        xp_t, xp_q = xp[:, 0:3].T[:, :, None], xp[:, 3:7].T[:, :, None]
+    else:  # (E,B,7) -> lane E
+        xp_t, xp_q = xp[..., 0:3].permute(2, 1, 0), xp[..., 3:7].permute(2, 1, 0)
+    planes = dict(xp_t=xp_t, xp_q=xp_q, rp_local=xp_t - com_parent)
+    return {n: t.contiguous() for n, t in planes.items()}
+
+
 def traced_planes(model, params: SimParams) -> dict:
     """Per-call parameters in plane layout (pallas_soa.py:349-389):
     ``gains`` (2,3,B,1|E), ``inv_m`` (B,1|E), ``inertia`` and
-    ``inv_inertia`` (3,3,B,1|E). Shared params (``joint_target_ke``
-    (n_qd,)) give lane-1 planes, per-env params ((E, n_qd)) lane-E planes."""
+    ``inv_inertia`` (3,3,B,1|E), plus the ``XP_NAMES`` anchor planes when
+    ``params.joint_X_p`` is set. Shared params (``joint_target_ke`` (n_qd,))
+    give lane-1 planes, per-env params ((E, n_qd)) lane-E planes."""
     didx = torch.as_tensor(dof_index(model), dtype=torch.long,
                            device=params.joint_target_ke.device)
     ke, kd = params.joint_target_ke, params.joint_target_kd
@@ -164,10 +191,13 @@ def traced_planes(model, params: SimParams) -> dict:
     else:  # (E,B,3,3)
         inertia = params.body_inertia.permute(2, 3, 1, 0)  # (3,3,B,E)
         inv_inertia = params.body_inv_inertia.permute(2, 3, 1, 0)
-    return {
+    planes = {
         n: t.to(torch.float32).contiguous()
         for n, t in zip(TRACED_NAMES, (gains, inv_m, inertia, inv_inertia))
     }
+    if params.joint_X_p is not None:
+        planes.update(xp_planes(model, params.joint_X_p))
+    return planes
 
 
 def window_work(model, E: int, substeps: int, n_frames: int) -> dict:
@@ -328,6 +358,10 @@ class SoaWindow:
         self.launches = 0  # kernel launches of this wrapper
 
     def __call__(self, state: SimState, joint_targets, joint_acts, params: SimParams):
+        if params.joint_X_p is not None or params.body_com is not None:
+            raise ValueError("SoaWindow takes joint_X_p and body_com from the model (K1 has "
+                             "no anchor or COM planes); live anchors go through the "
+                             "with_xp interval kernels")
         dev = state.body_q.device
         S = self.sub * (self.F - 1) + 1
         if joint_targets.shape[0] != S:

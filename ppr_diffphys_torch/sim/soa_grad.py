@@ -10,15 +10,19 @@ kernels, counterpart of ``ppr_diffphys_tpu/sim/pallas_soa_grad.py``
   forward kernel K2 (which exports the state entering each substep when a
   gradient is needed) and the backward kernel K3 (the substep adjoint) plus
   its fixed-order env reduction for shared planes. It never falls back.
+  ``with_xp=True`` adds the three live joint-anchor planes (``XP_NAMES``:
+  ``xp_t``, ``xp_q``, ``rp_local``) as inputs with gradients, the lab4d
+  coupling's per-env ``joint_X_p``.
 - :func:`rollout_soa` chains the intervals of a window, with the
   frame-boundary observables from the plain force pipeline under
-  ``torch.no_grad()``.
+  ``torch.no_grad()``. A live ``params.joint_X_p`` goes through the
+  anchor planes (the interval must be built ``with_xp``); a live
+  ``params.body_com`` raises, as no kernel takes a COM plane.
 
 The TPU package's VMEM planners (residuals modes, ``plan_chunks``,
 ``pick_e_tile``, ``make_diff_chain``'s chunking) only size TPU memory and
 have no counterpart: K2 always exports the per-substep states and K3 reads
-them. The live ``joint_X_p`` anchor planes (``with_xp``) belong to the lab4d
-coupling and are not supported yet.
+them.
 """
 
 from __future__ import annotations
@@ -30,14 +34,14 @@ import torch
 
 from ..csrc import build as kbuild
 from .integrator import SemiImplicitIntegrator, SimParams, SimState, interval
-from .soa import (TRACED_NAMES, PackedConsts, envs_per_cta, ptr, sim_args, traced_planes,
-                  window_work)
+from .soa import (TRACED_NAMES, XP_NAMES, PackedConsts, envs_per_cta, ptr, sim_args,
+                  traced_planes, window_work)
 
 KERNEL = "soa_interval"
 KERNEL_FWD, KERNEL_BWD, KERNEL_REDUCE = (
     "soa_interval_fwd", "soa_interval_bwd", "soa_interval_reduce")
 # rows per body of each traced plane, in the kernel's gradient layout
-PLANE_ROWS = dict(gains=6, inv_m=1, inertia=9, inv_inertia=9)
+PLANE_ROWS = dict(gains=6, inv_m=1, inertia=9, inv_inertia=9, xp_t=3, xp_q=4, rp_local=3)
 REDUCE_WARPS_PER_CTA = 8  # the env reduction: one warp per plane row
 
 
@@ -47,12 +51,15 @@ def _kernel_lib():
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     consts = [P] * 4  # body_i body_f cbody cf
     lists = [P] * 3 + [I]  # adj_off adj c_off, len(adj)
-    planes = [P, I] * 4  # gains inv_m inertia inv_inertia, each with its per-env flag
+    # gains inv_m inertia inv_inertia, each with its per-env flag; the anchor
+    # planes xp_t xp_q rp_local (null: body_f's) and their per-env flag
+    planes = [P, I] * 4 + [P] * 3 + [I]
     # E B n_qd C S; dt ang_decay g attach; envs per CTA, stream
     tail = [I] * 5 + [Fl] * 7 + [I, P]
-    for fn in (lib.soa_interval_plane_rows, lib.soa_interval_max_bodies):
-        fn.argtypes = []
-        fn.restype = I
+    lib.soa_interval_plane_rows.argtypes = [I]
+    lib.soa_interval_plane_rows.restype = I
+    lib.soa_interval_max_bodies.argtypes = []
+    lib.soa_interval_max_bodies.restype = I
     lib.soa_interval_fwd_launch.argtypes = (  # bq0 bqd0 tgt act res | out_q out_qd sstate
         [P] * 5 + consts + lists + planes + [P] * 3 + tail)
     lib.soa_interval_fwd_launch.restype = I
@@ -94,26 +101,29 @@ class DiffInterval:
     (pallas_soa_grad.py:90-572 make_diff_interval).
 
     ``interval(bq (7,B,E), bqd (6,B,E), tgt (S,n_qd,E), act (S,n_qd,E),
-    res (S,6,B,E), gains, inv_m, inertia, inv_inertia) -> (bq', bqd')``.
-    ``with_act=False`` / ``with_res=False`` (the training default, as the
-    reference multiplies torques and residual forces by 0) treat act / res
-    as zero and give them no gradient. Kernel launches are counted in
-    ``self.launches``."""
+    res (S,6,B,E), gains, inv_m, inertia, inv_inertia[, xp_t, xp_q,
+    rp_local]) -> (bq', bqd')``: the anchor planes exactly when
+    ``with_xp``. ``with_act=False`` / ``with_res=False`` (the training
+    default, as the reference multiplies torques and residual forces by 0)
+    treat act / res as zero and give them no gradient. Kernel launches are
+    counted in ``self.launches``."""
 
     def __init__(self, integrator: SemiImplicitIntegrator, dt: float, substeps: int,
-                 with_res: bool = False, with_act: bool = False):
+                 with_res: bool = False, with_act: bool = False, with_xp: bool = False):
         self.integrator = integrator
         self.model = integrator.model
         self.dt = float(dt)
         self.S = int(substeps)
         self.with_res = bool(with_res)
         self.with_act = bool(with_act)
+        self.with_xp = bool(with_xp)
+        self.names = TRACED_NAMES + (XP_NAMES if self.with_xp else ())
         self._consts = PackedConsts(self.model)
         self.launches = {KERNEL_FWD: 0, KERNEL_BWD: 0, KERNEL_REDUCE: 0}
 
     def __call__(self, bq, bqd, tgt, act, res, *planes):
-        if len(planes) != len(TRACED_NAMES):
-            raise ValueError("need the %d planes %s" % (len(TRACED_NAMES), TRACED_NAMES))
+        if len(planes) != len(self.names):
+            raise ValueError("need the %d planes %s" % (len(self.names), self.names))
         if tgt.shape[0] != self.S:
             raise ValueError("tgt has %d substep rows; the interval has %d"
                              % (tgt.shape[0], self.S))
@@ -145,15 +155,19 @@ class DiffInterval:
                                  % (n, shape, dev, t.dtype, tuple(t.shape), t.device))
             out[n] = t.contiguous()
         pl = []
-        for n, p in zip(TRACED_NAMES, planes):
+        for n, p in zip(self.names, planes):
             if p.device != dev or p.dtype != torch.float32 or p.shape[-1] not in (1, E):
                 raise ValueError("parameter plane %s must be float32 on %s with lane 1 or E=%d"
                                  % (n, dev, E))
             pl.append(p.contiguous())
         pe = lambda p: int(p.shape[-1] == E and E > 1)
         plane_args = []
-        for p in pl:
+        for p in pl[:len(TRACED_NAMES)]:
             plane_args += [ptr(p), pe(p)]
+        xp = pl[len(TRACED_NAMES):]
+        if xp and len({p.shape[-1] for p in xp}) != 1:
+            raise ValueError("the anchor planes must share one lane width")
+        plane_args += [ptr(p) for p in xp] + [pe(xp[0])] if xp else [None, None, None, 0]
         tail = [E, B, n_qd, model.contact_count, S] + sim_args(model, self.dt)
         return out, pl, plane_args, tail
 
@@ -193,7 +207,7 @@ class DiffInterval:
         """K3 (one warp per env, ``envs_per_cta(E)`` envs per CTA) on the
         (S,E,13,B) export and the cotangents dq (7,B,E), dqd (6,B,E), then,
         for shared planes, the env reduction (one warp per plane row).
-        Returns (dbq, dbqd, dtgt, dact or None, dres or None, [the four plane
+        Returns (dbq, dbqd, dtgt, dact or None, dres or None, [the plane
         gradients in the planes' shapes])."""
         E, B = sstate.shape[1], sstate.shape[3]
         dev = sstate.device
@@ -207,10 +221,11 @@ class DiffInterval:
         dtgt = torch.empty((self.S, self.model.n_qd, E), **f32)
         dact = torch.empty_like(seq["act"]) if seq["act"] is not None else None
         dres = torch.empty_like(seq["res"]) if seq["res"] is not None else None
-        rows = lib.soa_interval_plane_rows()
-        if rows != sum(PLANE_ROWS.values()):
+        rows = lib.soa_interval_plane_rows(int(self.with_xp))
+        want = sum(PLANE_ROWS[n] for n in self.names)
+        if rows != want:
             raise RuntimeError("soa_interval library has %d plane rows, the wrapper %d"
-                               % (rows, sum(PLANE_ROWS.values())))
+                               % (rows, want))
         dplanes = torch.empty((rows, B, E), **f32)
         status = lib.soa_interval_bwd_launch(
             ptr(sstate), ptr(seq["tgt"]), ptr(seq["act"]), ptr(seq["res"]),
@@ -228,7 +243,7 @@ class DiffInterval:
             kbuild.check(status, KERNEL_REDUCE)
             self.launches[KERNEL_REDUCE] += 1
         grads, o = [], 0
-        for n, p, sh in zip(TRACED_NAMES, pl, shared):
+        for n, p, sh in zip(self.names, pl, shared):
             r = PLANE_ROWS[n]
             g = summed[o:o + r, :, None] if sh else dplanes[o:o + r]
             grads.append(g.reshape(p.shape))
@@ -237,8 +252,10 @@ class DiffInterval:
 
 
 def make_diff_interval(integrator: SemiImplicitIntegrator, dt: float, substeps: int,
-                       with_res: bool = False, with_act: bool = False) -> DiffInterval:
-    return DiffInterval(integrator, dt, substeps, with_res=with_res, with_act=with_act)
+                       with_res: bool = False, with_act: bool = False,
+                       with_xp: bool = False) -> DiffInterval:
+    return DiffInterval(integrator, dt, substeps, with_res=with_res, with_act=with_act,
+                        with_xp=with_xp)
 
 
 def _detached(params: SimParams) -> SimParams:
@@ -257,10 +274,12 @@ def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: S
     joint_targets/joint_acts (S,E,n_qd) (acts may be None), res_f (S,E,B,6)
     or None. Returns (body_q (F,E,B,7), body_qd (F,E,B,6), grf, jaf
     (F,E,B,6)); gradients flow to state0, the targets, acts, residual forces
-    and params through the interval kernels."""
-    if params.joint_X_p is not None:
-        raise NotImplementedError(
-            "a live joint_X_p override (the lab4d with_xp planes) is not ported yet")
+    and params, a live ``joint_X_p`` ((B,7) or (E,B,7)) included, through
+    the interval kernels."""
+    if params.body_com is not None:
+        raise ValueError("rollout_soa takes body_com from the model: no interval kernel "
+                         "has a COM plane")
+    with_xp = params.joint_X_p is not None
     S = joint_targets.shape[0]
     sub = int(substeps_per_frame)
     n_intervals = (S - 1) // sub
@@ -268,11 +287,14 @@ def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: S
         raise ValueError("joint_targets has %d rows, not sub*(F-1)+1 (sub=%d)" % (S, sub))
     if interval_fn is None:
         interval_fn = make_diff_interval(integrator, dt, sub, with_res=with_res,
-                                         with_act=with_act)
+                                         with_act=with_act, with_xp=with_xp)
     elif interval_fn.S != sub:
         raise ValueError("interval_fn has %d substeps, the window %d" % (interval_fn.S, sub))
+    elif interval_fn.with_xp != with_xp:
+        raise ValueError("interval_fn built with with_xp=%s but params.joint_X_p is %s"
+                         % (interval_fn.with_xp, "live" if with_xp else "None"))
     planes = traced_planes(integrator.model, params)
-    tr = tuple(planes[n] for n in TRACED_NAMES)
+    tr = tuple(planes[n] for n in interval_fn.names)
     tgt_p = joint_targets.permute(0, 2, 1).contiguous()  # (S, n_qd, E)
     act_p = None if joint_acts is None else joint_acts.permute(0, 2, 1).contiguous()
     res_p = None if res_f is None else res_f.permute(0, 3, 2, 1).contiguous()  # (S,6,B,E)
@@ -311,7 +333,8 @@ def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: S
     return aos(qs), aos(qds), torch.stack(grfs, 0), torch.stack(jafs, 0)
 
 
-def interval_work(model, E: int, substeps: int, n_active_contacts: float = None) -> dict:
+def interval_work(model, E: int, substeps: int, n_active_contacts: float = None,
+                  xp_lanes: int = 0) -> dict:
     """Bytes each interval kernel must move and fp32 operations it must do,
     for the roofline bound (each input read once, each output written once;
     shared planes, no acts or residual forces, as training calls them).
@@ -331,7 +354,12 @@ def interval_work(model, E: int, substeps: int, n_active_contacts: float = None)
     1360, per contact 67 to find it inactive, and per active (penetrating)
     contact-substep 296 more; then the E-reduction, 25*B adds per env.
     ``n_active_contacts`` is the number of (env, substep, contact) triples
-    that penetrate in this run's data (default: every contact, always)."""
+    that penetrate in this run's data (default: every contact, always).
+    ``xp_lanes`` (0: none, 1: shared, E: per env) adds the live anchor
+    planes: 10 rows per body and lane read by both kernels, and K3's 10 more
+    rows of per-env partials (with their reduction for shared anchors). The
+    anchor adjoint's operations are those of the parent transform's adjoint
+    that joint_adj already counts."""
     from .builder import JOINT_COMPOUND, JOINT_FIXED, JOINT_REVOLUTE
 
     B, C, n_qd = model.n_links, model.contact_count, model.n_qd
@@ -339,7 +367,8 @@ def interval_work(model, E: int, substeps: int, n_active_contacts: float = None)
     f4 = 4
     per = window_work(model, E, S, 2)["per_env_substep"]
     integ = 287
-    planes_b = 25 * B * f4
+    planes_b = (25 * B + 10 * B * xp_lanes) * f4
+    rows = 35 if xp_lanes else 25
     consts_b = (B * (5 + 32) + C * 9) * f4
     fwd_bytes = (13 * B * E + S * n_qd * E) * f4 + planes_b + consts_b + (
         13 * B * E + S * 13 * B * E) * f4
@@ -350,9 +379,9 @@ def interval_work(model, E: int, substeps: int, n_active_contacts: float = None)
     if n_active_contacts is None:
         n_active_contacts = float(E) * S * C
     bwd_ops = E * S * (per - integ * B + 809 * B + joints + 67 * C) \
-        + 296 * n_active_contacts + 25 * B * E
+        + 296 * n_active_contacts + rows * B * E
     bwd_bytes = (S * 13 * B * E + S * n_qd * E + 13 * B * E) * f4 + planes_b + consts_b + (
-        13 * B * E + S * n_qd * E + 25 * B * E) * f4 + (25 * B * E + 25 * B) * f4
+        13 * B * E + S * n_qd * E + rows * B * E) * f4 + (rows * B * E + rows * B) * f4
     return dict(fwd_bytes=fwd_bytes, fwd_ops=fwd_ops, bwd_bytes=bwd_bytes, bwd_ops=bwd_ops)
 
 

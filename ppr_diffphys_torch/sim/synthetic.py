@@ -137,3 +137,24 @@ def sim_params_np(model, E=None, seed=0):
         kd = (kd[None] * (1 + 0.2 * rng.rand(E, model.n_qd))).astype(np.float32)
         mass = (mass[None] * (1 + 0.2 * rng.rand(E, model.n_links))).astype(np.float32)
     return ke, kd, mass, norm_I.astype(np.float32)
+
+
+def perturbed_anchors(model, E=None, seed=0, shift=1e-2, angle=0.05):
+    """Joint parent anchors near the model's, as a live ``joint_X_p``:
+    (B,7) shared (E None) or (E,B,7) per env. Each translation moves by up
+    to ``shift`` (m) per axis, each rotation by a random axis and an angle
+    up to ``angle`` (rad), seeded; float32."""
+    rng = np.random.RandomState(seed)
+    xp = np.asarray(model.joint_X_p, np.float64)
+    shape = (model.n_links,) if E is None else (E, model.n_links)
+    t = xp[..., 0:3] + rng.uniform(-shift, shift, shape + (3,))
+    axis = rng.randn(*shape, 3)
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    half = 0.5 * rng.uniform(-angle, angle, shape)[..., None]
+    dq = np.concatenate([axis * np.sin(half), np.cos(half)], -1)  # xyzw
+    q = np.broadcast_to(xp[..., 3:7], dq.shape)
+    # Hamilton product dq * q, xyzw
+    v1, w1, v2, w2 = dq[..., :3], dq[..., 3:], q[..., :3], q[..., 3:]
+    qn = np.concatenate([w1 * v2 + w2 * v1 + np.cross(v1, v2),
+                         w1 * w2 - np.sum(v1 * v2, -1, keepdims=True)], -1)
+    return np.concatenate([t, qn], -1).astype(np.float32)

@@ -265,6 +265,100 @@ def test_cuda_interval_raises_without_its_library(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         di(state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0),
            tgt[:SUB].permute(0, 2, 1), None, None, *(planes[n] for n in soa.TRACED_NAMES))
+    # the with_xp launch too
+    live = soa_grad.DiffInterval(tint.SemiImplicitIntegrator(model), DT, SUB, with_xp=True)
+    xp = soa.xp_planes(model, torch.as_tensor(model.joint_X_p, device=dev))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        live(state.body_q.permute(2, 1, 0), state.body_qd.permute(2, 1, 0),
+             tgt[:SUB].permute(0, 2, 1), None, None,
+             *(planes[n] for n in soa.TRACED_NAMES), *(xp[n] for n in soa.XP_NAMES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_env", [False, True], ids=["shared", "per_env"])
+@pytest.mark.parametrize("name", ["a1", "chain45"])
+def test_interval_kernels_with_live_anchors_match_plain(name, per_env):
+    """K2/K3 with live joint anchors (with_xp) against the plain interval
+    with the anchor planes, 64 envs (the 45-contact chain: 1027 envs, a
+    ragged last CTA), anchors moved ~1e-2 m and ~0.05 rad from the
+    model's, per env or shared: values as the window's; K3 at the plain
+    linearization, every gradient (the three anchor planes included) within
+    1e-4 of its largest entry, shared planes through the env reduction."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model(name)
+    E = 64 if name == "a1" else E_RAGGED
+    state, tgt, act, res, params, w = _interval_case(model, E, False, dev)
+    integ = tint.SemiImplicitIntegrator(model)
+    di = soa_grad.DiffInterval(integ, DT, SUB, with_res=True, with_act=True, with_xp=True)
+    xp = synthetic.perturbed_anchors(model, E if per_env else None, seed=5)
+    xpl = soa.xp_planes(model, torch.as_tensor(xp, device=dev))
+    _, planes = _planes(model, params)
+    pl = [p.detach() for p in planes] + [xpl[n] for n in soa.XP_NAMES]
+    ins = [x.detach() for x in _state_inputs(state, tgt, act, res)]
+    with torch.no_grad():
+        qa, qda = tint.interval(integ, DT, *ins, *pl)
+        qb, qdb = di(*ins, *pl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(qb, qa, rtol=0, atol=1e-5)
+    torch.testing.assert_close(qdb, qda, rtol=0, atol=5e-3)
+    wide = [p.expand(*p.shape[:-1], E).contiguous().requires_grad_() for p in pl]
+    ins = [x.clone().requires_grad_() for x in ins]
+    q, qd, sst = tint.interval(integ, DT, *ins, *wide, export=True)
+    plain = torch.autograd.grad((q * w[0]).sum() + (qd * w[1]).sum(), ins + wide)
+    seq = [x.detach() for x in ins[2:]]
+    *kern, dwide = di._backward(sst, *seq, [x.detach() for x in wide], w[0], w[1])
+    names = ["bq0", "bqd0", "tgt", "act", "res"] + list(di.names)
+    for n, a, b in zip(names, plain, kern + list(dwide)):
+        assert torch.isfinite(b).all(), n
+        assert float((a - b).abs().max()) <= 1e-4 * (float(a.abs().max()) + 1e-12), n
+    red = di._backward(sst, *seq, pl, w[0], w[1])[5]
+    for n, p, s, g in zip(di.names, pl, red, plain[5:]):
+        if p.shape[-1] == 1:
+            want = g.sum(-1, keepdim=True)
+            assert float((s - want).abs().max()) <= 1e-3 * (float(want.abs().max()) + 1e-12), n
+
+
+@pytest.mark.cuda
+def test_model_anchors_live_equal_baked_on_the_card():
+    """The model's own anchors as lane-1 planes: K2's states and K3's other
+    gradients equal the baked kernels' bit for bit."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model("a1")
+    state, tgt, act, res, params, w = _interval_case(model, 256, True, dev)
+    integ = tint.SemiImplicitIntegrator(model)
+    baked = soa_grad.DiffInterval(integ, DT, SUB, with_act=True)
+    live = soa_grad.DiffInterval(integ, DT, SUB, with_act=True, with_xp=True)
+    _, planes = _planes(model, params)
+    pl = [p.detach() for p in planes]
+    xp = soa.xp_planes(model, torch.as_tensor(model.joint_X_p, device=dev))
+    ins = [x.detach() for x in _state_inputs(state, tgt, act, res)]
+    q0, qd0, s0 = baked._forward(ins[0], ins[1], ins[2], ins[3], None, pl, True)
+    q1, qd1, s1 = live._forward(ins[0], ins[1], ins[2], ins[3], None,
+                                pl + [xp[n] for n in soa.XP_NAMES], True)
+    assert torch.equal(q0, q1) and torch.equal(qd0, qd1) and torch.equal(s0, s1)
+    g0 = baked._backward(s0, ins[2], ins[3], None, pl, w[0], w[1])
+    g1 = live._backward(s1, ins[2], ins[3], None, pl + [xp[n] for n in soa.XP_NAMES],
+                        w[0], w[1])
+    for a, b in zip(g0[:4] + tuple(g0[5]), g1[:4] + tuple(g1[5][:4])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_window_rejects_anchor_and_com_overrides_on_cuda():
+    """On CUDA tensors too the window raises on a live joint_X_p or body_com
+    (K1 has no anchor or COM planes) instead of dropping it."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model("a1")
+    state, tgt, _, params = _inputs(model, 8, 2, False, dev)
+    window = soa.SoaWindow(tint.SemiImplicitIntegrator(model), DT, SUB, 2)
+    for bad in (params._replace(joint_X_p=torch.as_tensor(model.joint_X_p, device=dev)),
+                params._replace(body_com=torch.as_tensor(model.body_com, device=dev))):
+        with pytest.raises(ValueError, match="joint_X_p and body_com"):
+            window(state, tgt, None, bad)
+    assert window.launches == 0
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@ planes), on a1 and on the FIXED/COMPOUND/REVOLUTE chain, with shared and
 per-env parameters and penetrating contacts. The references are jax.grad
 of the XLA scan (integrator.rollout) and of the Pallas interval pair in
 interpret mode (pallas_soa_grad.rollout_soa(interpret=True), the TPU
-kernels K2/K3 this slice ports).
+kernels K2/K3 this slice ports), also with a live joint_X_p (the with_xp
+planes of the lab4d coupling).
 
 Tolerances are the JAX package's own between its two engines
 (tests/test_pallas_grad.py): the loss to rtol 1e-4, each gradient within
@@ -34,7 +35,7 @@ import ppr_diffphys_torch.sim.import_urdf as timport
 from ppr_diffphys_torch.sim import integrator as tint
 from ppr_diffphys_torch.sim import soa as tsoa
 from ppr_diffphys_torch.sim import soa_grad
-from ppr_diffphys_torch.sim.synthetic import chain_model
+from ppr_diffphys_torch.sim.synthetic import chain_model, perturbed_anchors
 
 import port_helpers as H
 
@@ -203,13 +204,111 @@ def test_interval_export_is_the_state_entering_each_substep(models):
         assert torch.equal(sst[j], torch.cat([qj, qdj], 0).detach().permute(2, 0, 1))
 
 
-def test_rollout_soa_rejects_live_joint_anchors(models):
+def _jax_loss_xp(jm, norm_I, wq, wqd, roll):
+    """_jax_loss with a live joint_X_p as the ninth argument."""
+    def f(ke, kd, mass, tgt, act, res, bq0, bqd0, xp):
+        I = norm_I * mass[..., None, None]
+        p = jint.SimParams(
+            body_mass=mass, body_inv_mass=1.0 / mass, body_inertia=I,
+            body_inv_inertia=jnp.linalg.inv(I), joint_target_ke=ke, joint_target_kd=kd,
+            joint_X_p=xp,
+        )
+        q, qd, _, _ = roll(p, jint.SimState(bq0, bqd0), tgt, act, res)
+        return jnp.sum(q * wq) + jnp.sum(qd * wqd)
+    return f
+
+
+def _port_xp(tm, norm_I, wq, wqd, args, xp, interval_fn=None):
+    ts = [torch.tensor(np.asarray(a)).requires_grad_() for a in tuple(args) + (xp,)]
+    ke, kd, mass, tgt, act, res, bq0, bqd0, xpt = ts
+    I = torch.as_tensor(norm_I) * mass[..., None, None]
+    p = tint.SimParams(mass, 1.0 / mass, I, torch.linalg.inv(I), ke, kd, joint_X_p=xpt)
+    integ = tint.SemiImplicitIntegrator(tm)
+    if interval_fn is None:
+        interval_fn = soa_grad.make_diff_interval(integ, DT, SUB, with_res=True, with_act=True,
+                                                  with_xp=True)
+    q, qd, _, _ = soa_grad.rollout_soa(
+        integ, p, tint.SimState(bq0, bqd0), tgt, act, res, DT, SUB, interval_fn=interval_fn)
+    loss = (q * torch.as_tensor(wq)).sum() + (qd * torch.as_tensor(wqd)).sum()
+    return loss, torch.autograd.grad(loss, ts, allow_unused=True)
+
+
+@pytest.mark.parametrize("lanes", ["per_env", "shared"])
+def test_rollout_soa_live_anchors_match_jax(models, lanes):
+    """A live joint_X_p (anchors moved ~1e-2 m and ~0.05 rad from the
+    model's), per env ((E,B,7): lane-E planes) or shared ((B,7): lane 1),
+    through the with_xp interval: values and gradients, joint_X_p's
+    included, against jax.grad of the XLA scan with the same override and,
+    on a1, of the Pallas with_xp pair in interpret mode. Tolerances as
+    above."""
+    name, (jm, tm) = models
+    args, norm_I, wq, wqd = _problem(jm, False, seed=7)
+    xp = perturbed_anchors(tm, E if lanes == "per_env" else None, seed=5)
+    jinteg = jint.SemiImplicitIntegrator(jm)
+    jargs = tuple(jnp.asarray(a) for a in tuple(args) + (xp,))
+    xla = _jax_loss_xp(jm, norm_I, wq, wqd,
+                       lambda p, s, t, a, r: jint.rollout(jinteg, p, s, t, a, r, DT, SUB))
+    v_x, g_x = jax.value_and_grad(xla, argnums=tuple(range(9)))(*jargs)
+    loss, g_t = _port_xp(tm, norm_I, wq, wqd, args, xp)
+    names = NAMES + ["joint_X_p"]
+    np.testing.assert_allclose(float(loss.detach()), float(v_x), rtol=1e-4)
+    _check_grads(g_x, g_t, names)
+    assert float(np.abs(np.asarray(g_x[-1])).max()) > 0
+
+    if name == "a1":  # the Pallas with_xp pair in interpret mode (slow on the CPU)
+        pallas = _jax_loss_xp(
+            jm, norm_I, wq, wqd,
+            lambda p, s, t, a, r: jrollout_soa(jinteg, p, s, t, a, r, DT, SUB, e_tile=E,
+                                               interpret=True))
+        v_p, g_p = jax.value_and_grad(pallas, argnums=tuple(range(9)))(*jargs)
+        np.testing.assert_allclose(float(loss.detach()), float(v_p), rtol=1e-4)
+        _check_grads(g_p, g_t, names)
+
+
+def test_model_anchors_passed_live_equal_no_anchors(models):
+    """The model's own joint_X_p passed live (the with_xp interval) gives
+    the rollout and gradients of the default path, within the file's
+    tolerances: the plain interval then forms the parent arm as
+    quat_rotate(parent, rp_local) instead of the anchor's world point less
+    the parent's world COM, the same quantity rounded another way."""
+    _, (jm, tm) = models
+    args, norm_I, wq, wqd = _problem(jm, True, seed=8)
+    loss0, g0, _ = _port_value_and_grads(tm, norm_I, wq, wqd, args)
+    loss1, g1 = _port_xp(tm, norm_I, wq, wqd, args, np.asarray(tm.joint_X_p))
+    np.testing.assert_allclose(float(loss1.detach()), float(loss0.detach()), rtol=1e-4)
+    _check_grads([g.numpy() for g in g0], g1[:8], NAMES)
+
+
+def test_rollout_soa_rejects_com_and_mismatched_interval(models):
+    """rollout_soa raises on a live body_com (no kernel has a COM plane) and
+    on an interval whose with_xp does not match params.joint_X_p."""
     _, (_, tm) = models
-    p = tint.default_sim_params(tm)._replace(joint_X_p=torch.zeros(tm.n_links, 7))
+    integ = tint.SemiImplicitIntegrator(tm)
     st = tint.SimState(torch.zeros(1, tm.n_links, 7), torch.zeros(1, tm.n_links, 6))
-    with pytest.raises(NotImplementedError, match="joint_X_p"):
-        soa_grad.rollout_soa(tint.SemiImplicitIntegrator(tm), p, st,
-                             torch.zeros(SUB + 1, 1, tm.n_qd), None, None, DT, SUB)
+    tgt = torch.zeros(SUB + 1, 1, tm.n_qd)
+    p = tint.default_sim_params(tm)
+    with pytest.raises(ValueError, match="body_com"):
+        soa_grad.rollout_soa(integ, p._replace(body_com=torch.zeros(tm.n_links, 3)), st, tgt,
+                             None, None, DT, SUB)
+    live = p._replace(joint_X_p=torch.as_tensor(tm.joint_X_p))
+    for params, fn in ((live, soa_grad.make_diff_interval(integ, DT, SUB)),
+                       (p, soa_grad.make_diff_interval(integ, DT, SUB, with_xp=True))):
+        with pytest.raises(ValueError, match="with_xp"):
+            soa_grad.rollout_soa(integ, params, st, tgt, None, None, DT, SUB, interval_fn=fn)
+
+
+def test_window_rejects_anchor_and_com_overrides(models):
+    """SoaWindow takes the anchors and COMs from the model, as the JAX K1
+    does: a live joint_X_p or body_com raises before the device branch (the
+    CUDA tensors' case is in tests/test_torch_cuda.py)."""
+    _, (_, tm) = models
+    window = tsoa.SoaWindow(tint.SemiImplicitIntegrator(tm), DT, SUB, 2)
+    st = tint.SimState(torch.zeros(1, tm.n_links, 7), torch.zeros(1, tm.n_links, 6))
+    p = tint.default_sim_params(tm)
+    for bad in (p._replace(joint_X_p=torch.as_tensor(tm.joint_X_p)),
+                p._replace(body_com=torch.as_tensor(tm.body_com))):
+        with pytest.raises(ValueError, match="joint_X_p and body_com"):
+            window(st, torch.zeros(SUB + 1, 1, tm.n_qd), None, bad)
 
 
 def test_interval_work_counts():

@@ -129,7 +129,7 @@ print(" ".join(mods))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = out.stdout.split()
-    assert len(mods) >= 26
+    assert len(mods) >= 29
     for m in ("sim.soa_grad", "models.losses", "models.phys_model", "main", "bench",
-              "utils.h100"):
+              "utils.h100", "models.fields", "models.interface", "utils.autodiff"):
         assert "ppr_diffphys_torch." + m in mods, m

@@ -37,6 +37,11 @@ and 2 envs per CTA (the second leaves the last CTA one env short):
   own substep states): every gradient, per-env plane partials included,
   within 1e-5 of its largest entry; for shared planes the env reduction
   within 1e-5 of the plain gradient's env sum.
+- K2/K3 with live joint anchors (``with_xp``: the xp_t, xp_q and rp_local
+  planes, per env and shared) against the plain interval with the same
+  planes, as above, the anchor planes' gradients within ANCHOR_TOL; and at
+  the model's own anchors, K2's states and K3's other gradients equal to
+  the baked kernels' bit for bit.
 
 Skips without a host C++ compiler.
 """
@@ -60,6 +65,13 @@ import port_helpers as H
 
 DT, SUB, E = 5e-4, 33, 5
 FORCE_TOL = dict(grf=2e-3, jaf=2e-2)
+# K3's anchor-plane gradients against autograd of the plain interval, as a
+# share of each gradient's largest entry: the plain version composes the
+# parent transform with transform_mul and its arm with quat_rotate of
+# rp_local, the kernel with qmul/qrot in another order, and xp_q's
+# cotangent collects every term of the joint law (measured up to 1.1e-5 on
+# the 45-contact chain)
+ANCHOR_TOL = 5e-5
 OWN_TOL = dict(grf=2e-4, jaf=2e-3)
 
 STUB = r"""
@@ -392,3 +404,105 @@ def test_host_interval_backward(on_host, case):
         assert torch.isfinite(b).all(), i
         err = float((a - b).abs().max()) / (float(a.abs().max()) + 1e-30)
         assert err <= 1e-5, (i, err)
+
+
+def _xp_planes(model, per_env, seed=5):
+    """Live anchors near the model's as lane-E (per env) or lane-1 planes."""
+    xp = synthetic.perturbed_anchors(model, E if per_env else None, seed)
+    planes = soa.xp_planes(model, torch.as_tensor(xp))
+    return [planes[n] for n in soa.XP_NAMES]
+
+
+@pytest.mark.parametrize("case", [
+    ("a1", 1, False, True),
+    ("a1", 2, True, False),
+    ("chain", 2, True, True),
+    ("chain45", 1, True, False),
+    ("chain45", 2, False, True),
+], ids=lambda c: "%s-epc%d-%s-%s" % (c[0], c[1], "act" if c[2] else "noact",
+                                     "per_env" if c[3] else "shared"))
+def test_host_interval_live_anchors(on_host, case):
+    """K2/K3 with live joint anchors (``with_xp``): K2's final state and
+    export against the plain interval with the anchor planes (K4's limits),
+    and K3 at the plain linearization against autograd of the plain
+    interval, every gradient within 1e-5 of its largest entry and the three
+    anchor planes' (per env) within ANCHOR_TOL; shared planes' env
+    reduction within the same limits of the plain env sum."""
+    name, epc, with_act, per_env = case
+    on_host(epc)
+    model = _model(name)
+    state, tgt, act, params = _problem(model, False)
+    integ = tint.SemiImplicitIntegrator(model)
+    di = soa_grad.DiffInterval(integ, DT, SUB, with_act=with_act, with_xp=True)
+    pl = _plane_list(model, params) + _xp_planes(model, per_env)
+    bq, bqd, tp, ap = _inner(state, tgt, act)
+    a_in = ap if with_act else None
+    rq, rqd, rs = tint.interval(integ, DT, bq, bqd, tp, a_in, None, *pl, export=True)
+    q, qd, sst = di._forward(bq, bqd, tp, a_in, None, pl, True)
+    for x, y, tol in ((q, rq, 1e-6), (qd, rqd, 2e-4), (sst[:, :, :7], rs[:, :, :7], 1e-6),
+                      (sst[:, :, 7:], rs[:, :, 7:], 2e-4)):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=0, atol=tol)
+    # the anchors moved the trajectory: the check is not the baked one
+    base = di._forward(bq, bqd, tp, a_in, None, _plane_list(model, params)
+                       + [soa.xp_planes(model, torch.as_tensor(model.joint_X_p))[n]
+                          for n in soa.XP_NAMES], False)
+    assert float((base[0] - q).abs().max()) > 1e-4
+
+    rng = np.random.RandomState(11)
+    B = model.n_links
+    w = (torch.as_tensor(rng.randn(7, B, E).astype(np.float32)),
+         torch.as_tensor(rng.randn(6, B, E).astype(np.float32)))
+    wide = [p.expand(*p.shape[:-1], E).contiguous().requires_grad_() for p in pl]
+    ins = [bq.clone().requires_grad_(), bqd.clone().requires_grad_(), tp.clone().requires_grad_()]
+    if with_act:
+        ins.append(ap.clone().requires_grad_())
+    pq, pqd, psst = tint.interval(integ, DT, ins[0], ins[1], ins[2],
+                                  ins[3] if with_act else None, None, *wide, export=True)
+    plain = list(torch.autograd.grad((pq * w[0]).sum() + (pqd * w[1]).sum(), ins + wide))
+    dbq, dbqd, dtgt, dact, _, dwide = di._backward(
+        psst, tp, a_in, None, [x.detach() for x in wide], w[0], w[1])
+    got = [dbq, dbqd, dtgt] + ([dact] if with_act else []) + list(dwide)
+    red = di._backward(psst, tp, a_in, None, pl, w[0], w[1])[5]
+    shared = [i for i, p in enumerate(pl) if p.shape[-1] == 1]
+    plain += [plain[len(ins) + i].sum(-1, keepdim=True) for i in shared]
+    got += [red[i] for i in shared]
+    anchor = {len(ins) + i for i in range(4, 7)} | {
+        len(ins) + len(pl) + k for k, i in enumerate(shared) if i >= 4}
+    assert len(plain) == len(got)
+    for i, (a, b) in enumerate(zip(plain, got)):
+        assert a.shape == b.shape, i
+        assert torch.isfinite(b).all(), i
+        err = float((a - b).abs().max()) / (float(a.abs().max()) + 1e-30)
+        assert err <= (ANCHOR_TOL if i in anchor else 1e-5), (i, err)
+    assert float(dwide[-3].abs().max()) > 0  # the anchor's arm has a gradient
+    assert di.launches[soa_grad.KERNEL_REDUCE] == 1
+
+
+@pytest.mark.parametrize("name", ["a1", "chain45"])
+def test_host_model_anchors_live_equal_baked(on_host, name):
+    """The model's own anchors passed as lane-1 planes (``with_xp``) give
+    K2's states and every other K3 gradient of the baked kernels bit for
+    bit: only where the anchors are read from differs."""
+    on_host(2)
+    model = _model(name)
+    state, tgt, act, params = _problem(model, True)
+    integ = tint.SemiImplicitIntegrator(model)
+    baked = soa_grad.DiffInterval(integ, DT, SUB, with_act=True)
+    live = soa_grad.DiffInterval(integ, DT, SUB, with_act=True, with_xp=True)
+    pl = _plane_list(model, params)
+    xp = soa.xp_planes(model, torch.as_tensor(model.joint_X_p))
+    static = soa.soa_static(model)
+    for n in soa.XP_NAMES:
+        assert torch.equal(xp[n], static[n])
+    bq, bqd, tp, ap = _inner(state, tgt, act)
+    q0, qd0, s0 = baked._forward(bq, bqd, tp, ap, None, pl, True)
+    q1, qd1, s1 = live._forward(bq, bqd, tp, ap, None, pl + [xp[n] for n in soa.XP_NAMES], True)
+    assert torch.equal(q0, q1) and torch.equal(qd0, qd1) and torch.equal(s0, s1)
+    rng = np.random.RandomState(2)
+    dq = torch.as_tensor(rng.randn(7, model.n_links, E).astype(np.float32))
+    dqd = torch.as_tensor(rng.randn(6, model.n_links, E).astype(np.float32))
+    g0 = baked._backward(s0, tp, ap, None, pl, dq, dqd)
+    g1 = live._backward(s1, tp, ap, None, pl + [xp[n] for n in soa.XP_NAMES], dq, dqd)
+    for a, b in zip(g0[:4] + tuple(g0[5]), g1[:4] + tuple(g1[5][:4])):
+        assert torch.equal(a, b)
