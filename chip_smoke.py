@@ -20,8 +20,8 @@ Phases (any failure exits non-zero):
     frame starts spread over [0, 24]: one warm-up and 3 timed rollouts, with
     the launch counts set to 0 just before and read just after; then the
     kernel held against the plain version on the main path's own inputs,
-    each timed with CUDA events, the kernel also by its device time under
-    torch.profiler;
+    each timed with CUDA events, the kernel also by its device time (CUDA
+    events around calls queued behind a device sleep);
  5. interval kernels vs plain: K2 (soa_interval_fwd) values and K3
     (soa_interval_bwd + its env reduction) gradients against the plain
     interval with autograd, on a1 and the chain at E=256 and on the chain
@@ -38,9 +38,9 @@ Phases (any failure exits non-zero):
     interval and step); the peak device memory; 2 more steps under
     torch.profiler (device busy share, time by kernel); then K2 and K3 timed
     alone on the main path's own first-interval inputs (each wrapper by
-    CUDA events, each kernel's device time by torch.profiler; K2's device
-    time with and without its export by CUDA events around calls queued
-    behind a device sleep) and held
+    CUDA events; each call's device time, and K2's with and without its
+    export, by CUDA events around calls queued behind a device sleep) and
+    held
     against the plain interval with autograd there; last the training loop's
     full-sequence eval (1 env, K1, no gradient), its launch count read, and
     K1 held against the plain rollout on that eval's inputs;
@@ -55,8 +55,8 @@ Phases (any failure exits non-zero):
     calls of 33 substeps per rep), one warm-up and 3 timed reps with the
     launch count set to 0 just before and read just after (exactly 30 per
     rep), the busy share of one profiled rep, K4 alone on the main path's
-    inputs timed (its wrapper by CUDA events, its device time by
-    torch.profiler) and held against plain, and a whole rep held against
+    inputs timed (its wrapper by CUDA events, its device time by CUDA events
+    around calls queued behind a device sleep) and held against plain, and a whole rep held against
     plain on 64 envs; train, 4096 envs x 10 intervals of 33 substeps, the same
     way (exactly 10 K2, K3 and reduction launches per rep, finite loss,
     finite non-zero gradients), K2's device time with and without its
@@ -92,12 +92,36 @@ Phases (any failure exits non-zero):
     CUDA events behind a device sleep) and held against plain; the eval forward over both videos (the with_xp K2 chained, no
     K1), get_camera, override_states_inv; then at 8 envs the same step over
     8 frames on the kernels and on the plain interval on the card: losses
-    and every tensor's gradient within TOL_GRAD_SUM;
+    within TOL_GRAD_SUM, and every tensor's gradient within TOL_GRAD_SUM of
+    the plain interval's autograd at the kernels' own trajectory (check (a)
+    for the whole step); end to end, each side on its own trajectory, every
+    gradient within TOL_GRAD_SUM unless some env took another branch of the
+    plain substep (``branch_bits``: a contact, friction-cone, joint-limit or
+    clamp kink crossed) on the two trajectories; then each env alone (1 env
+    x 8 frames) on the kernels and on the plain interval: an env whose
+    gradients differ beyond TOL_GRAD_SUM fails unless its two trajectories
+    took different branches;
+11. vis and IO on the card's paths: which of cv2 and tensorboard the machine
+    has decides what is written (a missing cv2 is printed, and the frames
+    are still rendered in memory and checked); (a) the training CLI
+    (``main.train_one``) on a1 at 512 envs x 24 frames, one round of 2
+    iterations (the loop runs 3, and rounds start at iterations 0 and 2),
+    with --render_vis and --profile_dir under a temporary logroot: the launch
+    counts of its own kernels (one K1 per eval, one K2, K3 and reduction per
+    interval and iteration), its checkpoint, videos, OBJ strip, profiler
+    trace and tensorboard scalars (equal to its JSON lines), the robot drawn
+    in the first and last sim frames (pixels that differ from the floor
+    alone); (b) the lab4d eval's query(img_size) from phase 10 rendered with
+    its cameras: the distilled and camera-posed streams written and not
+    blank, the robot drawn in their first frames (phase 10's intrinsics put
+    the principal point at the centre of lab4d's 480 x 640 frames); (c)
+    render_intermediate over (a)'s OBJ strips; the host time of vis.show per
+    round and of the rasterizer per stream frame, beside the nvidia-smi line;
  then a line quoting (not measuring) each kernel's wrapper time before
     its warp-per-env redesign, a ``kernels`` JSON line (``ms`` the
-    wrapper's time by CUDA events, ``device_ms`` its kernels' device time by
-    torch.profiler, both measured in this run, ``device_launches`` the
-    launches the profiler recorded of those issued; ``design``; the with_xp
+    wrapper's time by CUDA events, ``device_ms`` the device time of one
+    wrapper call by CUDA events around calls queued behind a device sleep,
+    both measured in this run; ``design``; the with_xp
     pair as ``soa_interval_fwd[with_xp]`` and ``soa_interval_bwd[with_xp]``
     from phase 10), the
     nvidia-smi line, and as the last line
@@ -128,12 +152,18 @@ E_RAGGED = 1027
 # and a1's four calf links as the interface's kp links (its template table
 # names none; the lab4d quad and human templates have theirs)
 LAB4D_FRAMES = 64
+# phase 11 (b): the lab4d eval's query(img_size) as (H, W, render scale): lab4d's
+# 480 x 640 frames rendered at half scale (240 x 320, the intrinsics halved)
+LAB4D_IMG_SIZE = (480, 640, 0.5)
 # frames of the lab4d step held against the plain version at E_SMALL envs
 # (8: 231 substeps, a third of the plain version's time at 24). Every
 # gradient there is summed over envs and frames, and where the two sides'
 # FMA rounding carries one env across a contact kink it moves by that env's
 # jump: measured on an NVIDIA H100 80GB HBM3 at 700 W, 8.5e-4 of its max
-# over 24 frames, and 4.8e-6 and 8.0e-4 over 8 frames from two model states
+# over 24 frames, and 4.8e-6, 8.0e-4 and 1.32e-3 over 8 frames from three
+# model states (the lab4d step is not deterministic run to run). So the
+# gradients are held to the plain interval's at the kernels' own trajectory,
+# and end to end only where no env's branches differ (each env also alone)
 F_SMALL = 8
 KP_LINKS_A1 = ("FR_calf", "FL_calf", "RR_calf", "RL_calf")
 # Quoted, not measured by this run: each kernel's wrapper time by CUDA
@@ -250,32 +280,6 @@ def export_share(label, di, call):
     log("%s K2 device time (CUDA events behind a device sleep, 20 calls each; export, bare, "
         "bare, export): %s ms; the export adds %.1f %%"
         % (label, [round(x, 4) for x in t], 100 * ((t[0] + t[3]) / (t[1] + t[2]) - 1)))
-
-
-def device_ms(fn, n, per_call):
-    """Device time per call of fn()'s kernels ``per_call`` ({name part:
-    launches per call}), by torch.profiler over n calls (fn ran once
-    before): each kernel's mean over the launches the profiler recorded,
-    times its launches per call. Late in a process that has profiled
-    before, the profiler can drop launches; the recorded counts are logged.
-    Fails when it records none. Beside the wrapper's time by CUDA events
-    (``cuda_time_ms``): where a kernel is shorter than its wrapper's host
-    work, back-to-back wrapper calls measure the host's pace. Returns (ms,
-    the recorded launches as "got of issued" per kernel)."""
-    from ppr_diffphys_torch.utils import h100
-
-    _, rows = h100.kernel_times(fn, n)
-    total, seen = 0.0, {}
-    for name, k in per_call.items():
-        ms = sum(r[0] for r in rows if name in r[2])
-        got = sum(r[1] for r in rows if name in r[2])
-        if ms <= 0 or got <= 0:
-            fail("torch.profiler recorded no device time for %s" % name)
-        total += ms / got * k
-        seen[name] = "%d of %d" % (round(got * n), k * n)
-    log("  device time by torch.profiler, launches recorded: %s" % json.dumps(seen))
-    return total, ", ".join(seen.values()) if len(seen) == 1 else ", ".join(
-        "%s %s" % (k, v) for k, v in seen.items())
 
 
 def profile_steps(step, n, E, F):
@@ -659,6 +663,126 @@ class PlainInterval:
                              *planes)
 
 
+class LinearizedPlainInterval(PlainInterval):
+    """K2's values forward and the plain interval's autograd backward at the
+    same inputs: a step through it has the kernels' own trajectory and the
+    plain version's gradients there (phase 5's check (a) for a whole step),
+    so a contact kink that the two forwards' FMA rounding crosses differently
+    moves neither side."""
+
+    def __init__(self, di):
+        super().__init__(di)
+        self.di = di
+
+    def __call__(self, bq, bqd, tgt, act, res, *planes):
+        import torch
+
+        di, plain = self.di, super().__call__
+
+        class KernelValuesPlainGrads(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, *ins):
+                ctx.save_for_backward(*ins)
+                return di(ins[0], ins[1], ins[2], act, res, *ins[3:])
+
+            @staticmethod
+            def backward(ctx, gq, gqd):
+                need = ctx.needs_input_grad
+                with torch.enable_grad():
+                    xs = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
+                    q, qd = plain(xs[0], xs[1], xs[2], act, res, *xs[3:])
+                    grads = iter(torch.autograd.grad((q, qd), [x for x in xs if x.requires_grad],
+                                                     (gq, gqd), allow_unused=True))
+                return tuple(next(grads) if n else None for n in need)
+
+        return KernelValuesPlainGrads.apply(bq, bqd, tgt, *planes)
+
+
+def branch_bits(integrator, dt, sst, tgt, act, res, planes):
+    """The plain substep's branch decisions at each state of a (S,E,13,B)
+    export, per env, as an (E, n) bool tensor: every comparison's result,
+    and which side of each clamp, minimum, maximum, abs and sign the value
+    fell on (contacts' penetration, damping and friction cone, joint
+    limits, atan2's octants, the velocity clamps). Where two trajectories'
+    bits differ in an env, that env crossed a kink between them."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from ppr_diffphys_torch.sim import integrator as tint
+
+    E = sst.shape[1]
+    bits = []
+
+    class Recorder(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            name = getattr(func, "__name__", "")
+            if name in ("__lt__", "__gt__", "__le__", "__ge__", "lt", "gt", "le", "ge"):
+                masks = [out]
+            elif name in ("minimum", "maximum"):
+                masks = [args[0] < args[1]]
+            elif name in ("abs", "sign"):
+                masks = [args[0] < 0, args[0] > 0]
+            elif name == "clamp":
+                lo = args[1] if len(args) > 1 else kwargs.get("min")
+                hi = args[2] if len(args) > 2 else kwargs.get("max")
+                masks = [args[0] < b if k == 0 else args[0] > b
+                         for k, b in enumerate((lo, hi)) if b is not None]
+            else:
+                masks = []
+            # state-dependent decisions lead with the env axis; the others
+            # depend on the parameters alone, which both sides share
+            bits.extend(m.reshape(E, -1) for m in masks
+                        if isinstance(m, torch.Tensor) and m.ndim and m.shape[0] == E)
+            return out
+
+    params, gains3 = tint.plane_params(*planes[:4], E, *planes[4:6])
+    rpl = tint._plane_aos(planes[6], E) if len(planes) > 6 else None
+    with torch.no_grad(), Recorder():
+        for s in range(sst.shape[0]):
+            state = tint.SimState(sst[s, :, :7].transpose(1, 2), sst[s, :, 7:].transpose(1, 2))
+            integrator.step_only(params, state, tgt[s].T, None if act is None else act[s].T,
+                                 None if res is None else res[s].permute(2, 1, 0), dt, gains3,
+                                 rpl)
+    return torch.cat(bits, 1)
+
+
+class BranchTracked(PlainInterval):
+    """The kernels (``kernels``: the DiffInterval itself) or the plain
+    interval behind the DiffInterval's interface, keeping for each call the
+    branch decisions (``branch_bits``) along the trajectory that side
+    computed: ``bits()`` gives them for every call so far, (E, n)."""
+
+    def __init__(self, di, kernels):
+        super().__init__(di)
+        self.di, self.kernels, self.calls = di, kernels, []
+
+    def __call__(self, bq, bqd, tgt, act, res, *planes):
+        import torch
+        from ppr_diffphys_torch.sim import integrator as tint
+
+        act = act if self.with_act else None
+        res = res if self.with_res else None
+        d = lambda x: None if x is None else x.detach()
+        if self.kernels:
+            out = self.di(bq, bqd, tgt, act, res, *planes)
+            with torch.no_grad():  # K2 again, with its export
+                sst = self.di._forward(d(bq), d(bqd), d(tgt), d(act), d(res),
+                                       [p.detach() for p in planes], True)[2]
+        else:
+            q, qd, sst = tint.interval(self.integrator, self.dt, bq, bqd, tgt, act, res,
+                                       *planes, export=True)
+            out = (q, qd)
+        self.calls.append(branch_bits(self.integrator, self.dt, sst, d(tgt), d(act), d(res),
+                                      [p.detach() for p in planes]))
+        return out
+
+    def bits(self):
+        import torch
+
+        return torch.cat(self.calls, 1)
+
+
 def lab4d_main_path(dev, sub_expect):
     """Phase 10: the lab4d coupling's main path on the card (see the module
     docstring). Returns the two with_xp kernel rows of the kernels line."""
@@ -679,6 +803,11 @@ def lab4d_main_path(dev, sub_expect):
     obj = fields.ObjectField(offsets, robot, g)
     scn = fields.CameraField(offsets, g, name="scene_field")
     intr = fields.IntrinsicsField(offsets)
+    # the intrinsics of lab4d's 480 x 640 frames (LAB4D_IMG_SIZE): the field's
+    # fx = fy = 1000 and the principal point at the image centre. Only the
+    # eval's vis cameras (ks_vis) read them, which phase 11 (b) renders
+    intr.init_params["ks"][:, 2] = LAB4D_IMG_SIZE[1] / 2
+    intr.init_params["ks"][:, 3] = LAB4D_IMG_SIZE[0] / 2
     # Random weights, then a scene a user would have: both camera fields
     # fitted (fit_camera_mlp) to one camera 3 m from the robot, panning
     # +-0.3 rad, so the object and scene views cancel and the urdf frame maps
@@ -787,15 +916,12 @@ def lab4d_main_path(dev, sub_expect):
     B = tm.n_links
     w = (torch.as_tensor(rng.randn(7, B, E_TRAIN).astype(np.float32), device=dev),
          torch.as_tensor(rng.randn(6, B, E_TRAIN).astype(np.float32), device=dev))
-    # device time by CUDA events behind a device sleep (queued_ms): this late
-    # in the process torch.profiler can record none of a kernel's launches
     k2_call = lambda: di._forward(bq0, bqd0, tgt0, None, None, planes0, True)
     k2_ms, (kq, kqd, sstate) = cuda_time_ms(k2_call, 10)
     k2_dev_ms = queued_ms(k2_call, 20)
     k3_call = lambda: di._backward(sstate, tgt0, None, None, planes0, w[0], w[1])
     k3_ms, _ = cuda_time_ms(k3_call, 10)
     k3_dev_ms = queued_ms(k3_call, 20)
-    k2_rec = k3_rec = "20 of 20 by CUDA events behind a device sleep"
     p2_ms, (pq, pqd) = cuda_time_ms(lambda: tint.interval(di.integrator, di.dt, bq0, bqd0,
                                                           tgt0, None, None, *planes0), 1)
 
@@ -856,6 +982,8 @@ def lab4d_main_path(dev, sub_expect):
                        tm.params["kinematics_distilled"]["scene_field"]["logscale"]):
         fail("phase 10: override_states_inv did not copy the distilled fields back")
     log("phase 10 get_camera %s, override_states_inv ok" % (cam.shape,))
+    vis_data = tm.query(img_size=LAB4D_IMG_SIZE)  # phase 11 (b) renders it
+    vis_data["model"] = tm.env
 
     # at E_SMALL envs: the same step on the kernels and on the plain version,
     # over F_SMALL frames
@@ -864,28 +992,72 @@ def lab4d_main_path(dev, sub_expect):
     fs = np.concatenate([o + np.round(np.linspace(0, LAB4D_FRAMES - F_SMALL, E_SMALL - half
                                                   if o else half))
                          for o in offsets[:2]]).astype(np.float32)
-    outs = {}
+    outs, bits = {}, {}
     key = ("interval", id(tm.integrator), sub, True)
     kernel_di = tm._kernels[key]
-    for name, fn in (("kernels", kernel_di), ("plain", PlainInterval(kernel_di))):
+    for name, fn in (("kernels", BranchTracked(kernel_di, True)),
+                     ("plain", BranchTracked(kernel_di, False)),
+                     ("linearized", LinearizedPlainInterval(kernel_di))):
         tm._kernels[key] = fn
         out = tm.forward(frame_start=fs)
         torch.cuda.synchronize()
         outs[name] = ({k: float(v) for k, v in out.items()}, dict(tm.last_grads))
+        if isinstance(fn, BranchTracked):
+            bits[name] = fn.bits()
+    (lk, gk), (lp, gp), (ll, gl) = outs["kernels"], outs["plain"], outs["linearized"]
+    err = lambda g, ref: {n: float((g[n] - ref[n]).abs().max() / (ref[n].abs().max() + 1e-30))
+                          for n in ref}
+    rel, e2e = err(gk, gl), err(gk, gp)
+    flips = (bits["kernels"] != bits["plain"]).sum(1).tolist()
+    top = lambda d: json.dumps({k: float("%.3g" % v)
+                                for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:5]})
+    log("  phase 10 step at %d envs x %d frames on the card: total loss on the kernels %.9g, "
+        "on the plain interval %.9g; %d gradients, the largest max|kernel-plain|/max|plain| at "
+        "the kernels' trajectory %s (tol %g); end to end, each side on its own trajectory, %s; "
+        "branch decisions that differ between the two trajectories, per env, %s of %d"
+        % (E_SMALL, F_SMALL, lk["total_loss"], lp["total_loss"], len(rel), top(rel),
+           TOL_GRAD_SUM, top(e2e), flips, bits["plain"].shape[1]))
+    # each env alone, end to end: an env whose gradients leave TOL_GRAD_SUM
+    # must have crossed a kink, i.e. taken another branch somewhere
+    t1 = time.perf_counter()
+    tm.reinit_envs(1, frames_per_wdw=F_SMALL, is_eval=False)
+    alone = []
+    for i in range(E_SMALL):
+        got = {}
+        for kernels in (True, False):
+            fn = BranchTracked(kernel_di, kernels)
+            tm._kernels[key] = fn
+            tm.forward(frame_start=fs[i:i + 1])
+            got[kernels] = (dict(tm.last_grads), fn.bits())
+        (gk1, bk1), (gp1, bp1) = got[True], got[False]
+        worst = max(err(gk1, gp1).items(), key=lambda kv: kv[1])
+        alone.append((float("%.3g" % worst[1]), worst[0], int((bk1 != bp1).sum())))
+    torch.cuda.synchronize()
     tm._kernels[key] = kernel_di
     tm._grad_accum = []
-    (lk, gk), (lp, gp) = outs["kernels"], outs["plain"]
-    rel = {n: float((gk[n] - gp[n]).abs().max() / (gp[n].abs().max() + 1e-30)) for n in gp}
-    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
-    log("  phase 10 step at %d envs x %d frames, kernels vs plain on the card: total loss "
-        "%.9g vs %.9g; %d gradients, the largest max|kernel-plain|/max|plain| %s (tol %g)"
-        % (E_SMALL, F_SMALL, lk["total_loss"], lp["total_loss"], len(rel),
-           json.dumps({k: float("%.3g" % v) for k, v in worst}), TOL_GRAD_SUM))
+    log("  phase 10 each env alone (1 env x %d frames, frame starts %s), end to end: per env "
+        "[largest max|kernel-plain|/max|plain|, its gradient, branch decisions that differ "
+        "of %d] %s (%.1f s)"
+        % (F_SMALL, fs.astype(int).tolist(), bp1.shape[1], json.dumps(alone),
+           time.perf_counter() - t1))
     if any(abs(lk[k] - lp[k]) > TOL_GRAD_SUM * max(abs(lp[k]), 1e-12) for k in lp):
         fail("phase 10: losses on the kernels and the plain version disagree: %s vs %s"
              % (json.dumps(lk), json.dumps(lp)))
+    if ll != lk:
+        fail("phase 10: the linearized step's losses %s are not the kernels' %s"
+             % (json.dumps(ll), json.dumps(lk)))
     if not all(np.isfinite(v) and v <= TOL_GRAD_SUM for v in rel.values()):
-        fail("phase 10: gradients on the kernels and the plain version disagree")
+        fail("phase 10: gradients on the kernels and the plain version at the kernels' "
+             "trajectory disagree")
+    if not all(np.isfinite(v) for v in e2e.values()) or (
+            max(e2e.values()) > TOL_GRAD_SUM and not any(flips)):
+        fail("phase 10: end-to-end gradients on the kernels and the plain version disagree "
+             "beyond %g with the same branches taken in every env" % TOL_GRAD_SUM)
+    odd = [i for i, (e, _, n) in enumerate(alone) if not np.isfinite(e)
+           or (e > TOL_GRAD_SUM and n == 0)]
+    if odd:
+        fail("phase 10: envs %s alone: end-to-end gradients on the kernels and the plain "
+             "version disagree beyond %g with the same branches taken" % (odd, TOL_GRAD_SUM))
     ro = float(gk["object_field.articulation.rest_offsets"].abs().max())
     if not ro > 0:
         fail("phase 10: no gradient reached object_field.articulation.rest_offsets")
@@ -893,18 +1065,250 @@ def lab4d_main_path(dev, sub_expect):
         % (time.time() - t0, ro))
     del tm
     torch.cuda.empty_cache()
-    row = lambda name, launches, err, ms, pms, roof, dms, rec: {
+    row = lambda name, launches, err, ms, pms, roof, dms: {
         "name": name, "route": "cuda", "source": "ppr_diffphys_torch/csrc/soa_interval.cu",
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": pms,
         "bound_ms": roof["ms"], "bound_by": roof["by"], "library_ms": None,
-        "design": "warp-per-env", "device_ms": dms, "device_launches": rec}
+        "design": "warp-per-env", "device_ms": dms}
     return [dict(row(soa_grad.KERNEL_FWD + "[with_xp]", launches[soa_grad.KERNEL_FWD],
-                     k2_err["q"], k2_ms, p2_ms, k2_roof, k2_dev_ms, k2_rec),
+                     k2_err["q"], k2_ms, p2_ms, k2_roof, k2_dev_ms),
                  replaces="ppr_diffphys_tpu/sim/pallas_soa_grad.py:473"),
             dict(row(soa_grad.KERNEL_BWD + "[with_xp]",
                      launches[soa_grad.KERNEL_BWD] + launches[soa_grad.KERNEL_REDUCE], k3_abs,
-                     k3_ms, p3_ms, k3_roof, k3_dev_ms, k3_rec),
-                 replaces="ppr_diffphys_tpu/sim/pallas_soa_grad.py:526")]
+                     k3_ms, p3_ms, k3_roof, k3_dev_ms),
+                 replaces="ppr_diffphys_tpu/sim/pallas_soa_grad.py:526")], vis_data
+
+
+class FrameRecorder:
+    """Wraps ``utils.io.save_vid``: keeps every stream's frames in memory (by
+    file name) and writes the mp4 only where cv2 is installed."""
+
+    def __init__(self, tio, write):
+        self.tio, self.write, self.real = tio, write, tio.save_vid
+        self.frames = {}
+
+    def __call__(self, outpath, frames, *a, **kw):
+        self.frames[os.path.basename(outpath)] = np.stack(frames)
+        if self.write:
+            self.real(outpath, frames, *a, **kw)
+
+    def __enter__(self):
+        self.tio.save_vid = self
+        return self
+
+    def __exit__(self, *exc):
+        self.tio.save_vid = self.real
+
+
+class RenderTimer:
+    """Counts and times ``SoftwareRenderer.render`` calls (host clock)."""
+
+    def __init__(self, cls):
+        self.cls, self.real, self.n, self.s = cls, cls.render, 0, 0.0
+
+    def __enter__(self):
+        real = self.real
+
+        def render(renderer, *a, **kw):
+            t = time.perf_counter()
+            out = real(renderer, *a, **kw)
+            self.s += time.perf_counter() - t
+            self.n += 1
+            return out
+
+        self.cls.render = render
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.render = self.real
+
+    def ms(self):
+        return self.s * 1e3 / max(self.n, 1)
+
+
+def robot_pixels(frame, floor):
+    """Pixels where a rendered frame differs from the floor alone under the
+    same camera and light: the robot (and its arrows) drawn."""
+    return int(np.any(frame != floor, axis=-1).sum())
+
+
+def vis_and_io(smi, lab4d_vis):
+    """Phase 11: the port's visualization and IO on the card's two user paths
+    (see the module docstring)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from ppr_diffphys_torch import main as tmain, render_intermediate
+    from ppr_diffphys_torch.models import phys_model as pm_mod
+    from ppr_diffphys_torch.sim import soa, soa_grad
+    from ppr_diffphys_torch.utils import io as tio, vis as tvis
+    from ppr_diffphys_torch.utils.render import SoftwareRenderer
+
+    t0 = time.time()
+    missing = tvis.missing_packages(("cv2", "tensorboard"))
+    if "tensorboard" in missing:
+        fail("phase 11: tensorboard is not installed: the CLI's logs cannot be written")
+    write_mp4 = "cv2" not in missing
+    if not write_mp4:
+        log("vis: mp4 not written: cv2 absent (every frame is still rendered in memory and "
+            "checked)")
+        tvis.VIDEO_PACKAGES = ()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_vis")
+    root = tmp.name
+
+    # (a) the training CLI: one round of 2 iterations at the main path's width;
+    # the loop runs num_rounds * iters_per_round + 1 iterations, and a round
+    # (checkpoint, eval, videos) starts at iterations 0 and 2
+    argv = ["--urdf_template", "a1", "--seqname", "a1-synth",
+            "--datadir", os.path.join(REPO, "tests", "fixtures", "motion_sequences"),
+            "--urdf_dir", os.path.join(REPO, "tests", "fixtures"), "--logroot", root,
+            "--logname", "smoke", "--num_rounds", "1", "--iters_per_round", "2",
+            "--num_envs", str(E_TRAIN), "--frames_per_wdw", str(F_TRAIN), "--seed", str(SEED),
+            "--render_vis", "--profile_dir", os.path.join(root, "prof")]
+    built = []
+
+    class Recorded(pm_mod.phys_model):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    out = io.StringIO()
+    pm_mod.phys_model = Recorded
+    try:
+        with FrameRecorder(tio, write_mp4) as rec, RenderTimer(SoftwareRenderer) as rt, \
+                contextlib.redirect_stdout(out):
+            t1 = time.perf_counter()
+            tmain.train_one(tmain.parse_args(argv))
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t1
+    finally:
+        pm_mod.phys_model = Recorded.__bases__[0]
+    lines = [json.loads(l) for l in out.getvalue().splitlines() if l.startswith("{")]
+    evals = [l for l in lines if "eval/traj" in l]
+    iters = [l for l in lines if "total_loss" in l]
+    if [l["it"] for l in evals] != [0, 2] or [l["it"] for l in iters] != [0, 1, 2]:
+        fail("phase 11 CLI: JSON lines for evals %s and iterations %s"
+             % ([l["it"] for l in evals], [l["it"] for l in iters]))
+    if not (all(np.isfinite(l["total_loss"]) for l in iters)
+            and all(np.isfinite(l["eval/traj"]) for l in evals)):
+        fail("phase 11 CLI: non-finite loss")
+    (model,) = built
+    window = [k for key, k in model._kernels.items() if key[0] == "window"]
+    interval = [k for key, k in model._kernels.items() if key[0] == "interval"]
+    launches = {soa.KERNEL: sum(w.launches for w in window)}
+    for di in interval:
+        for k, v in di.launches.items():
+            launches[k] = launches.get(k, 0) + v
+    n_int = F_TRAIN - 1
+    want = {soa.KERNEL: len(evals), soa_grad.KERNEL_FWD: len(iters) * n_int,
+            soa_grad.KERNEL_BWD: len(iters) * n_int, soa_grad.KERNEL_REDUCE: len(iters) * n_int}
+    log("phase 11 CLI (%d envs x %d frames, %d iterations, evals at iterations %s): %.1f s; "
+        "iteration walls (iter_time) %s s; eval/traj %s; losses %s; launches %s"
+        % (E_TRAIN, F_TRAIN, len(iters), [l["it"] for l in evals], cli_s,
+           [l["iter_time"] for l in iters], [l["eval/traj"] for l in evals],
+           [l["loss"] for l in iters], json.dumps(launches)))
+    if launches != want:
+        fail("phase 11 CLI: launches %s, expected %s (one K1 per eval; one K2, K3 and "
+             "reduction per interval and iteration)" % (json.dumps(launches), json.dumps(want)))
+    save = os.path.join(root, "a1-synth-smoke")
+    names = ["ckpt_phys_0000.pth", "sim_traj-00000.obj"]
+    if write_mp4:
+        names += ["%s-00000.mp4" % k for k in ("target", "sim", "control_ref", "all")]
+    for n in names:
+        path = os.path.join(save, n)
+        if not (os.path.exists(path) and os.path.getsize(path) > 0):
+            fail("phase 11 CLI: %s missing or empty" % n)
+    trace = os.path.join(root, "prof", "trace.json")
+    if not (os.path.exists(trace) and os.path.getsize(trace) > 0):
+        fail("phase 11 CLI: no profiler trace")
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(save, size_guidance={"scalars": 0})
+    acc.Reload()
+    for key, recs in (("eval/traj", evals), ("loss", iters)):
+        got = [(e.step, e.value) for e in acc.Scalars(key)]
+        want_tb = [(r["it"], float(np.float32(r[key]))) for r in recs]
+        if got != want_tb:
+            fail("phase 11 CLI: tensorboard %s %s, JSON lines %s" % (key, got, want_tb))
+    streams = sorted(k for k in rec.frames if k.endswith("-00000"))
+    sim = rec.frames["sim-00000"]
+    floor_r = SoftwareRenderer(256, 256)
+    floor_r.set_light_topdown(gl=True)
+    vis = tvis.PhysVisualizer(os.path.join(root, "floor"), render_video=False)
+    floor = vis._render(floor_r, [])
+    vis.close()
+    drawn = [robot_pixels(sim[i], floor) for i in (0, len(sim) - 1)]
+    vis_s = [l["vis_time"] for l in evals]
+    t1 = time.perf_counter()
+    for _ in range(20):
+        model.env.collision_mesh()
+    mesh_ms = (time.perf_counter() - t1) / 20 * 1e3
+    log("phase 11 CLI outputs: %s; streams %s of %s frames; robot pixels in the first and "
+        "last sim frames %s; profiler trace %.1f MB; tensorboard eval/traj and loss == the "
+        "JSON lines" % (", ".join(names), streams, sim.shape, drawn,
+                        os.path.getsize(trace) / 1e6))
+    if sim.shape[0] != model.total_frames or min(drawn) < 100:
+        fail("phase 11 CLI: the sim video does not show the robot (%s frames, %s pixels)"
+             % (sim.shape[0], drawn))
+    log("phase 11 vis host time: vis.show %s s per round (query() and show(), %d frames, %d "
+        "streams); rasterizer %.3f ms per stream frame over %d renders; collision_mesh() %.3f "
+        "ms per call, one per posed robot, 3 a frame here (%s)"
+        % (vis_s, model.total_frames, len(streams), rt.ms(), rt.n, mesh_ms, smi))
+    ri_dir = save
+    del built, model, window, interval
+    torch.cuda.empty_cache()
+
+    # (b) the lab4d eval's query(img_size), rendered with its cameras
+    H, W, scale = LAB4D_IMG_SIZE
+    with FrameRecorder(tio, write_mp4) as rec, RenderTimer(SoftwareRenderer) as rt:
+        vis = tvis.PhysVisualizer(os.path.join(root, "lab4d"), render_video=write_mp4)
+        t1 = time.perf_counter()
+        vis.show(0, lab4d_vis, fps=30.0)
+        show_s = time.perf_counter() - t1
+        vis.close()
+    want_streams = ["target", "sim", "control_ref", "distilled", "all"]
+    if sorted(rec.frames) != sorted("%s-00000" % k for k in want_streams):
+        fail("phase 11 lab4d: streams %s" % sorted(rec.frames))
+    for k, fr in rec.frames.items():
+        n_frames = len(lab4d_vis["sim_traj"])
+        width = int(W * scale) * (len(want_streams) - 1 if k.startswith("all") else 1)
+        if fr.shape != (n_frames, int(H * scale), width, 3) or not (fr != 255).any():
+            fail("phase 11 lab4d: stream %s is %s or blank" % (k, fr.shape))
+    cam0 = lab4d_vis["camera"][0]
+    r = SoftwareRenderer(int(H * scale), int(W * scale))
+    r.set_light_topdown(gl=True)
+    m = np.eye(4, dtype=np.float32)
+    m[:3] = cam0[:3]
+    r.set_camera(m)
+    r.set_intrinsics(cam0[3] * scale)
+    floor0 = vis._render(r, [], keep_camera=True)
+    drawn = {k: robot_pixels(rec.frames[k + "-00000"][0], floor0) for k in want_streams[:4]}
+    objs = [n for n in os.listdir(os.path.join(root, "lab4d")) if n.endswith(".obj")]
+    log("phase 11 lab4d vis: query(img_size=%s) over %d frames, streams %s at %dx%d, OBJ "
+        "strips %s; robot pixels in frame 0 %s; vis.show %.3f s, rasterizer %.3f ms per "
+        "stream frame over %d renders (%s)"
+        % (LAB4D_IMG_SIZE, len(lab4d_vis["sim_traj"]), want_streams, int(H * scale),
+           int(W * scale), sorted(objs), json.dumps(drawn), show_s, rt.ms(), rt.n, smi))
+    if sorted(objs) != ["distilled_traj-00000.obj", "sim_traj-00000.obj"]:
+        fail("phase 11 lab4d: OBJ strips %s" % objs)
+    if min(drawn.values()) < 100:
+        fail("phase 11 lab4d: the robot is not drawn in frame 0 with its camera: %s"
+             % json.dumps(drawn))
+
+    # (c) render_intermediate over the CLI's OBJ strips
+    with FrameRecorder(tio, write_mp4) as rec, contextlib.redirect_stdout(io.StringIO()):
+        mp4 = render_intermediate.main(["--testdir", ri_dir, "--image_size", "256"])
+    fr = rec.frames.get("sim_traj")
+    if mp4 is None or fr is None or fr.shape != (2, 256, 256, 3) or not (fr != 255).any():
+        fail("phase 11 render_intermediate: %s" % (None if fr is None else fr.shape,))
+    if write_mp4 and not os.path.getsize(mp4) > 0:
+        fail("phase 11 render_intermediate: %s is empty" % mp4)
+    tmp.cleanup()
+    log("phase 11 render_intermediate: %s frames from the CLI's 2 OBJ strips%s" % (
+        fr.shape, ", written to sim_traj.mp4" if write_mp4 else ""))
+    log("phase 11 vis and IO: ok (%.1f s)" % (time.time() - t0))
 
 
 def main():
@@ -1047,7 +1451,7 @@ def main():
     prologue_ms, _ = cuda_time_ms(lambda: server.prologue(frame_start), 3)
     k1_call = lambda: server.window(state, ref_t, None, params)
     kern_ms, kout = cuda_time_ms(k1_call, 3)
-    k1_dev_ms, k1_rec = device_ms(k1_call, 3, {soa.KERNEL: 1})
+    k1_dev_ms = queued_ms(k1_call, 3)
     plain_ms, pout = cuda_time_ms(
         lambda: tint.rollout(m.integrator, params, state, ref_t, None, None, m.dt, sub), 1)
     errs = max_errs(kout, pout)
@@ -1218,12 +1622,11 @@ def main():
     dqd = torch.as_tensor(rng.randn(6, B, E_TRAIN).astype(np.float32), device=dev)
     k2_call = lambda: di._forward(bq0, bqd0, tgt0, None, None, planes0, True)
     k2_ms, (kq, kqd, sstate) = cuda_time_ms(k2_call, 10)
-    k2_dev_ms, k2_rec = device_ms(k2_call, 10, {soa_grad.KERNEL_FWD: 1})
+    k2_dev_ms = queued_ms(k2_call, 10)
     export_share("phase 6 (E=%d)" % E_TRAIN, di, first[0])
     k3_call = lambda: di._backward(sstate, tgt0, None, None, planes0, dq, dqd)
     k3_ms, kg = cuda_time_ms(k3_call, 10)
-    k3_dev_ms, k3_rec = device_ms(k3_call, 10, {soa_grad.KERNEL_BWD: 1,
-                                         **({soa_grad.KERNEL_REDUCE: 1} if shared else {})})
+    k3_dev_ms = queued_ms(k3_call, 10)
 
     def plain_fwd():
         ins = [bq0.clone().requires_grad_(), bqd0.clone().requires_grad_(),
@@ -1251,7 +1654,8 @@ def main():
     k3_roof = h100.roofline(iw["bwd_bytes"], iw["bwd_ops"])
     step_ms = float(np.median(steps)) * 1e3
     log("phase 6 interval times (E=%d, %d substeps, first interval of the main path; "
-        "wrappers by CUDA events over 10 calls, device time by torch.profiler): "
+        "wrappers by CUDA events over 10 calls, device time by CUDA events around 10 calls "
+        "queued behind a device sleep): "
         "K2 %.3f ms (%.3f ms of device time; bound %.4f ms: bytes %.4f, ops %.4f), plain "
         "forward %.1f ms; K3 incl. reduce %.3f ms (%.3f ms of device time; bound %.4f ms: "
         "bytes %.4f, ops %.4f; %d active "
@@ -1385,7 +1789,7 @@ def main():
     # K4 alone on the main path's first-call inputs, vs plain
     k4_call = lambda: rb.kernel(work.state, rb.tgt, rb.act)
     k4_ms, k4_out = cuda_time_ms(k4_call, 10)
-    k4_dev_ms, k4_rec = device_ms(k4_call, 10, {soa.KERNEL_ROLLOUT: 1})
+    k4_dev_ms = queued_ms(k4_call, 10)
     p4_ms, p4_out = cuda_time_ms(lambda: tint.rollout_substeps(
         work.integrator, rb.kernel.params, work.state, rb.tgt, rb.act, m.dt), 1)
     k4_err = {"q": float((k4_out[0] - p4_out[0]).abs().max()),
@@ -1394,7 +1798,7 @@ def main():
     w4 = soa.rollout_work(work.model, E_MAIN, sub)
     k4_roof = h100.roofline(w4["bytes"], w4["ops"])
     log("phase 8 K4 per launch (E=%d, %d substeps): %.3f ms by CUDA events over 10 calls "
-        "(%.3f ms of device time by torch.profiler), plain %.1f ms; bound %.4f ms "
+        "(%.3f ms of device time by CUDA events behind a device sleep), plain %.1f ms; bound %.4f ms "
         "(%d bytes -> %.4f ms, %d fp32 ops -> %.4f ms)"
         % (E_MAIN, sub, k4_ms, k4_dev_ms, p4_ms, k4_roof["ms"], w4["bytes"], k4_roof["bytes_ms"],
            w4["ops"], k4_roof["ops_ms"]))
@@ -1535,7 +1939,10 @@ def main():
     anchor_checks(dev, a1, sub, m.dt)
 
     # ---- 10. the lab4d main path ---------------------------------------------------
-    xp_rows = lab4d_main_path(dev, sub)
+    xp_rows, lab4d_vis = lab4d_main_path(dev, sub)
+
+    # ---- 11. vis and IO on the card's paths ---------------------------------------
+    vis_and_io(smi, lab4d_vis)
     log("total %.1f s" % (time.time() - t_all))
 
     # ---- results -----------------------------------------------------------------
@@ -1553,7 +1960,6 @@ def main():
         "library_ms": None,
         "design": "warp-per-env",
         "device_ms": k1_dev_ms,
-        "device_launches": k1_rec,
     }, {
         "name": soa_grad.KERNEL_FWD,
         "route": "cuda",
@@ -1568,7 +1974,6 @@ def main():
         "library_ms": None,
         "design": "warp-per-env",
         "device_ms": k2_dev_ms,
-        "device_launches": k2_rec,
     }, {
         # K3's row counts its launches together with the env reduction's
         "name": soa_grad.KERNEL_BWD,
@@ -1585,7 +1990,6 @@ def main():
         "library_ms": None,
         "design": "warp-per-env",
         "device_ms": k3_dev_ms,
-        "device_launches": k3_rec,
     }, {
         "name": soa.KERNEL_ROLLOUT,
         "route": "cuda",
@@ -1600,7 +2004,6 @@ def main():
         "library_ms": None,
         "design": "warp-per-env",
         "device_ms": k4_dev_ms,
-        "device_launches": k4_rec,
     }] + xp_rows
     log("quoted from PERF.md, not measured in this run: wrapper ms by CUDA events when each "
         "kernel ran one thread per env, each from the last run before its warp-per-env "

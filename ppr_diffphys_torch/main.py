@@ -4,16 +4,18 @@
     python -m ppr_diffphys_torch.main --urdf_template a1 --seqname a1-synth \\
         --datadir tests/fixtures/motion_sequences --urdf_dir tests/fixtures
 
-Round-based loop: per round, checkpoint -> full-sequence eval -> train
-iterations on windowed envs with gradient accumulation and grad safety.
-Flags carry ``main.py``'s names and defaults, plus ``--device`` (default
-cuda; ``--device cpu`` runs the plain PyTorch versions of the kernels).
-Left out: the TPU engine and tiling flags (``phys_engine``, ``eval_engine``,
-``soa_e_tile``, ``soa_ksub``, ``rollout_unroll``), ``mesh_shape``, ``ngpu``,
-``profile_dir``, ``ckpt_backend`` (checkpoints are pickles). Per-iteration
-loss dicts and eval scores are printed as JSON lines on stdout;
-tensorboard logs and rendered videos (``render_vis``) wait for the port of
-the visualization modules.
+Round-based loop: per round, checkpoint -> full-sequence eval -> videos and
+trajectory OBJ strips of the eval (``--render_vis``, ``utils/vis.py``) ->
+train iterations on windowed envs with gradient accumulation and grad
+safety. The eval score and every iteration's loss dict are written to
+tensorboard in the run's directory and printed as JSON lines on stdout;
+``--profile_dir`` traces iterations 2-4 with ``torch.profiler`` into a
+Chrome trace there. Flags carry ``main.py``'s names and defaults, plus
+``--device`` (default cuda; ``--device cpu`` runs the plain PyTorch versions
+of the kernels). Left out: the TPU engine and tiling flags
+(``phys_engine``, ``eval_engine``, ``soa_e_tile``, ``soa_ksub``,
+``rollout_unroll``); ``ckpt_backend`` (orbax is a JAX library; checkpoints
+are pickles); ``mesh_shape`` and ``ngpu`` (multi-GPU is not ported yet).
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def parse_args(argv=None) -> dict:
         help="window-length curriculum: grow frames_per_wdw over training with "
              "num_envs=max(1,100/frames)")
     add("--render_vis", action=argparse.BooleanOptionalAction, default=True,
-        help="render per-round videos (not ported yet: ignored)")
+        help="render per-round videos (needs cv2)")
     add("--seed", type=int, default=0, help="rng seed")
     add("--contact_mode", default="hull", help="hull | all | hull:<margin>")
     add("--soa_with_res", action=argparse.BooleanOptionalAction, default=False,
@@ -80,6 +82,8 @@ def parse_args(argv=None) -> dict:
              "ckpt_phys_best.pth")
     add("--num_seeds", type=int, default=1,
         help="train num_seeds runs (seed, seed+1, ...) and keep the best by eval")
+    add("--profile_dir", default="",
+        help="trace training iterations 2-4 with torch.profiler into this directory")
     add("--device", default="cuda", help="cuda (the kernels) or cpu (their plain versions)")
     return vars(p.parse_args(argv))
 
@@ -90,13 +94,23 @@ def log(record: dict):
 
 def train_one(opts):
     """One training run; returns (best_eval_score, best_ckpt_path)."""
-    from .data.amp_loader import DataLoader
-    from .models.phys_model import phys_model
     from .utils.config import build_opts
+    from .utils.vis import PhysVisualizer
 
     opts = build_opts(**opts)
     logname = "%s-%s" % (opts["seqname"], opts["logname"])
     save_dir = os.path.join(opts["logroot"], logname)
+    vis = PhysVisualizer(save_dir, render_video=opts["render_vis"])
+    try:
+        return _train(opts, save_dir, vis)
+    finally:
+        vis.close()
+
+
+def _train(opts, save_dir, vis):
+    from .data.amp_loader import DataLoader
+    from .models.phys_model import phys_model
+
     dataloader = DataLoader(opts)
     if opts["noise_std"] is None:
         opts["noise_std"] = NOISE_STD_DEFAULT
@@ -106,18 +120,24 @@ def train_one(opts):
             print("24 Hz sequence: defaulting --noise_std to 6e-3")
 
     model = phys_model(opts, dataloader, device=opts["device"])
+    profiler = None
     best_score, best_it = None, None
     for it in range(model.total_iters):
         model.progress = it / (opts["num_rounds"] * opts["iters_per_round"])
 
         if it % opts["iters_per_round"] == 0:
             model.save_checkpoint(it)
-            # full-sequence eval (reference main.py:78-81)
+            # full-sequence eval and its videos (reference main.py:78-81)
             model.reinit_envs(1, frames_per_wdw=model.total_frames, is_eval=True)
             eval_score = float(model.forward()["loss_traj"])
-            log({"it": it, "eval/traj": eval_score})
+            vis.write_log({"eval/traj": eval_score}, it)
             if opts["eval_selection"] and (best_score is None or eval_score < best_score):
                 best_score, best_it = eval_score, it
+            t = time.time()
+            data = model.query()
+            data["model"] = model.env
+            vis.show(it, data, fps=1.0 / model.frame_interval, render_video=opts["render_vis"])
+            log({"it": it, "eval/traj": eval_score, "vis_time": time.time() - t})
             if opts["wdw_schedule"]:
                 fpw = int(0.5 * (model.total_frames - 1) / model.total_iters * it + 1)
                 fpw = max(2, min(fpw, model.total_frames))
@@ -127,6 +147,13 @@ def train_one(opts):
             else:
                 model.reinit_envs(opts["num_envs"], frames_per_wdw=opts["frames_per_wdw"],
                                   is_eval=False)
+
+        if opts["profile_dir"]:
+            if it == 2:
+                profiler = _start_profile(model.device)
+            elif it == 5:
+                _stop_profile(profiler, opts["profile_dir"])
+                profiler = None
 
         t = time.time()
         accu = []
@@ -139,8 +166,11 @@ def train_one(opts):
         record["loss"] = float(sum(float(a) for a in accu)) / float(opts["accu_steps"])
         record.update(grad_dict)
         record["iter_time"] = time.time() - t
+        vis.write_log(record, it)
         record["it"] = it
         log(record)
+    if profiler is not None:  # fewer than 5 iterations: the window ends with the run
+        _stop_profile(profiler, opts["profile_dir"])
 
     best_path = None
     if best_it is not None:
@@ -151,6 +181,26 @@ def train_one(opts):
         print("best checkpoint by full-sequence eval: iter %d (traj %.4f) -> %s"
               % (best_it, best_score, best_path))
     return best_score, best_path
+
+
+def _start_profile(device):
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir):
+    """End the trace and write it as a Chrome trace, profile_dir/trace.json."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print("profiler trace of iterations 2-4: %s" % path)
 
 
 def main(argv=None):

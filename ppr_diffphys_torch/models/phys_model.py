@@ -327,14 +327,74 @@ class phys_model:
             joint_X_p=joint_X_p,
         )
 
+    # -- reference-surface compatibility helpers -----------------------
+    def get_mocap_data(self, steps_fr):
+        """Interpolated, GL-converted mocap slices at (possibly fractional)
+        frames (reference get_mocap_data, dp_model.py:605-609); the
+        bullet->GL conversion is baked into the mocap table."""
+        steps_fr = torch.as_tensor(steps_fr, dtype=torch.float32, device=self.device)
+        return parse_amp(self._interp_amp(steps_fr))
+
+    def get_net_pred(self, steps_fr):
+        """The five time-MLP predictions on a (bs, T) frame grid (reference
+        get_net_pred, dp_model.py:518-552), from the live modules. Returns
+        (torques, delta_root, delta_ja_ref, state_qd, res_f), torques and
+        res_f zeroed as in the reference (parity with reference :529/:536)."""
+        steps_fr = torch.as_tensor(steps_fr, dtype=torch.float32, device=self.device)
+        bs, nstep = steps_fr.shape
+        flat = steps_fr.reshape(-1)
+        mlp = lambda name: self._mlp(name, flat).reshape(bs, nstep, -1)
+        torques = mlp("torque_mlp") * 0.0
+        res_f = mlp("residual_f_mlp").reshape(bs, nstep, -1, 6)
+        res_f = torch.cat([res_f[..., :3] * 10.0, res_f[..., 3:]], -1).reshape(bs, nstep, -1) * 0.0
+        return (torques, mlp("root_pose_mlp"), mlp("joint_angle_mlp"), mlp("vel_mlp"), res_f)
+
+    @staticmethod
+    def rearrange_pred(queried_q, queried_ja, queried_qd, torques, res_f):
+        """(bs, T, .) -> (T, bs*.) layouts (reference rearrange_pred,
+        dp_model.py:554-572). Returns (ref_ja, qq, qd, torques, res_f)."""
+        bs, nstep, _ = queried_q.shape
+        qq = torch.cat([queried_q, queried_ja], -1).permute(1, 0, 2).reshape(nstep, -1)
+        qd = queried_qd.permute(1, 0, 2).reshape(nstep, -1)
+        zeros = torch.zeros(queried_ja.shape[:-1] + (6,), dtype=queried_ja.dtype,
+                            device=queried_ja.device)
+        ref_ja = torch.cat([zeros, queried_ja], -1).permute(1, 0, 2).reshape(nstep, -1)
+        return ref_ja, qq, qd, torques.reshape(nstep, -1), res_f.reshape(nstep, -1, 6)
+
+    def get_optimizable_param_list(self):
+        """(params_ref_list, params_list, lr_list) over the trainable top-level
+        groups in sorted order (reference dp_model.py:478-509): each group's
+        tensors, a group of one tensor named by the group as that tensor, else
+        as {JAX path: tensor}."""
+        params_ref_list, params_list, lr_list = [], [], []
+        named = self.named_tensors()
+        for name, lr in sorted(self.param_peak_lr.items()):
+            if lr > 0:
+                group = {n: t for n, t in named if n.split(".")[0] == name}
+                value = group[name] if list(group) == [name] else group
+                params_ref_list.append({name: value})
+                params_list.append(value)
+                lr_list.append(lr)
+        return params_ref_list, params_list, lr_list
+
+    @staticmethod
+    def rm_module_prefix(states, prefix="module"):
+        """Strip a DataParallel-style name prefix from a checkpoint dict
+        (reference dp_model.py:345-352)."""
+        out = {}
+        for name, value in states.items():
+            if name.startswith(prefix + "."):
+                name = name[len(prefix) + 1:]
+            out[name] = value
+        return out
+
     def get_batch_input(self, params, steps_fr):
         """Targets + network predictions for a window (reference
         dp_model.py:611-662). steps_fr (E, S) fractional frames (float32
         tensor on the model's device). Returns a dict of tensors."""
         params = self.params if params is None else params
         E, S = steps_fr.shape
-        amp = self._interp_amp(steps_fr)
-        msm = parse_amp(amp)
+        msm = self.get_mocap_data(steps_fr)
         target_ja = msm["jang"][..., : self.n_dof]
         target_jad = msm["jvel"][..., : self.n_dof]
         target_q = torch.cat([msm["pos"], msm["orn"]], -1)
@@ -344,14 +404,8 @@ class phys_model:
         target_q = rotate_frame(params["global_q"], target_q)
         target_qd = rotate_frame_vel(params["global_q"], target_qd)
 
-        flat = steps_fr.reshape(-1)
-        torques = self._mlp("torque_mlp", flat).reshape(E, S, -1) * 0.0
-        res_f = self._mlp("residual_f_mlp", flat).reshape(E, S, -1, 6)
-        res_f = torch.cat([res_f[..., :3] * 10.0, res_f[..., 3:]], -1)
-        res_f = res_f * 0.0  # disabled, parity with reference :529/:536
-        delta_root = self._mlp("root_pose_mlp", flat).reshape(E, S, -1)
-        delta_ja = self._mlp("joint_angle_mlp", flat).reshape(E, S, -1)
-        state_qd = self._mlp("vel_mlp", flat).reshape(E, S, -1)
+        torques, delta_root, delta_ja, state_qd, res_f = self.get_net_pred(steps_fr)
+        res_f = res_f.reshape(E, S, -1, 6)
 
         queried_q = compose_delta(target_q, delta_root)
         queried_ja = target_ja + delta_ja

@@ -49,3 +49,6 @@ def asin(x):
     x = torch.clamp(x, -1.0, 1.0)
     return atan2(x, torch.sqrt(torch.clamp(1.0 - x * x, min=1e-30)))
 
+
+def acos(x):
+    return 0.5 * math.pi - asin(x)

@@ -197,6 +197,16 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     return quat_normalize(q * sign)
 
 
+def quat_rpy(roll, pitch, yaw) -> torch.Tensor:
+    """URDF fixed-axis roll-pitch-yaw -> quat xyzw (R = Rz(yaw) Ry(pitch) Rx(roll)),
+    as wp.quat_rpy of the reference URDF importer (diffphys/import_urdf.py:31)."""
+    roll, pitch, yaw = (torch.as_tensor(a, dtype=torch.float32) for a in (roll, pitch, yaw))
+    qx = quat_from_axis_angle(_vec([1.0, 0.0, 0.0], roll), roll)
+    qy = quat_from_axis_angle(_vec([0.0, 1.0, 0.0], pitch), pitch)
+    qz = quat_from_axis_angle(_vec([0.0, 0.0, 1.0], yaw), yaw)
+    return quat_mul(qz, quat_mul(qy, qx))
+
+
 # ---------------------------------------------------------------------------
 # compound (ball) joint angles — intrinsic X-Y'-Z'' (M = Rx(a) Ry(b) Rz(c))
 # ---------------------------------------------------------------------------
@@ -220,6 +230,21 @@ def quat_to_compound(q: torch.Tensor) -> torch.Tensor:
     b = kernel_math.asin(torch.clamp(m[..., 0, 2], -1.0 + 1e-7, 1.0 - 1e-7))
     c = kernel_math.atan2(-m[..., 0, 1], m[..., 0, 0])
     return torch.stack([a, b, c], dim=-1)
+
+
+def quat_twist(axis: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Twist component of q about ``axis`` (swing-twist decomposition;
+    reference diffphys/integrator_euler.py:234-241)."""
+    proj = torch.sum(q[..., :3] * axis, dim=-1, keepdim=True) * axis
+    return quat_normalize(torch.cat([proj, q[..., 3:4]], dim=-1))
+
+
+def quat_twist_angle(axis: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Signed rotation angle of q about ``axis`` via swing-twist, in the
+    atan2 form (smooth at zero twist, unlike the reference's acos form,
+    diffphys/integrator_euler.py:397-400)."""
+    s = torch.sum(q[..., :3] * axis, dim=-1)
+    return 2.0 * kernel_math.atan2(s, q[..., 3])
 
 
 def rot_angle(m: torch.Tensor) -> torch.Tensor:

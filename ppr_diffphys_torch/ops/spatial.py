@@ -29,6 +29,16 @@ from .quaternion import (
 # transforms (7-vectors)
 # ---------------------------------------------------------------------------
 
+def transform_identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    t = torch.zeros(tuple(shape) + (7,), dtype=dtype, device=device)
+    t[..., 6] = 1.0
+    return t
+
+
+def make_transform(p, q) -> torch.Tensor:
+    return torch.cat([torch.as_tensor(p), torch.as_tensor(q)], dim=-1)
+
+
 def transform_p(t: torch.Tensor) -> torch.Tensor:
     return t[..., 0:3]
 
@@ -47,6 +57,16 @@ def transform_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def transform_point(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Apply full transform (rotation + translation) to point(s)."""
     return transform_p(t) + quat_rotate(transform_q(t), p)
+
+
+def transform_inverse(t: torch.Tensor) -> torch.Tensor:
+    qi = quat_inverse(transform_q(t))
+    return torch.cat([-quat_rotate(qi, transform_p(t)), qi], dim=-1)
+
+
+def transform_vector(t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply only the rotation of the transform to vector(s)."""
+    return quat_rotate(transform_q(t), v)
 
 
 # ---------------------------------------------------------------------------
@@ -109,3 +129,15 @@ def rotate_frame_vel(global_q: torch.Tensor, target_qd: torch.Tensor) -> torch.T
 def swap_lin_ang(v: torch.Tensor) -> torch.Tensor:
     """[a,b,rest] -> [b,a,rest] on the last axis: ppr<->warp layout swap."""
     return torch.cat([v[..., 3:6], v[..., 0:3], v[..., 6:]], dim=-1)
+
+
+def spatial_top(v: torch.Tensor) -> torch.Tensor:
+    return v[..., 0:3]
+
+
+def spatial_bottom(v: torch.Tensor) -> torch.Tensor:
+    return v[..., 3:6]
+
+
+def make_spatial(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    return torch.cat([top, bottom], dim=-1)

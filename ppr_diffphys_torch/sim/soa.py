@@ -170,14 +170,18 @@ def xp_planes(model, joint_X_p) -> dict:
     return {n: t.contiguous() for n, t in planes.items()}
 
 
-def traced_planes(model, params: SimParams) -> dict:
+def traced_planes(model, params: SimParams, didx=None) -> dict:
     """Per-call parameters in plane layout (pallas_soa.py:349-389):
     ``gains`` (2,3,B,1|E), ``inv_m`` (B,1|E), ``inertia`` and
     ``inv_inertia`` (3,3,B,1|E), plus the ``XP_NAMES`` anchor planes when
     ``params.joint_X_p`` is set. Shared params (``joint_target_ke`` (n_qd,))
-    give lane-1 planes, per-env params ((E, n_qd)) lane-E planes."""
-    didx = torch.as_tensor(dof_index(model), dtype=torch.long,
-                           device=params.joint_target_ke.device)
+    give lane-1 planes, per-env params ((E, n_qd)) lane-E planes. ``didx``:
+    ``dof_index(model)`` on the parameters' device (``PackedConsts.dof_index``);
+    built here when None, by a host-to-device copy that waits for the
+    stream."""
+    if didx is None:
+        didx = torch.as_tensor(dof_index(model), dtype=torch.long,
+                               device=params.joint_target_ke.device)
     ke, kd = params.joint_target_ke, params.joint_target_kd
     if ke.ndim == 1:
         gains = torch.stack([ke[didx].T, kd[didx].T])[..., None]  # (2,3,B,1)
@@ -251,6 +255,14 @@ class PackedConsts:
                                         "c_off")] + [int(c["adj"].numel())]
             self._by_dev[key] = (c, args)
         return self._by_dev[key][1]
+
+    def dof_index(self, dev) -> torch.Tensor:
+        """``dof_index(model)`` as a long tensor on ``dev``, copied once."""
+        key = "dof_index " + str(dev)
+        if key not in self._by_dev:
+            self._by_dev[key] = torch.as_tensor(dof_index(self.model), dtype=torch.long,
+                                                device=dev)
+        return self._by_dev[key]
 
 
 def envs_per_cta(E: int) -> int:
@@ -380,7 +392,8 @@ class SoaWindow:
         E, B, F = state.body_q.shape[0], model.n_links, self.F
         lib = _kernel_lib()
         check_bodies(KERNEL, B, lib.soa_window_max_bodies())
-        planes = traced_planes(model, params)
+        planes = traced_planes(model, params,
+                               self._consts.dof_index(params.joint_target_ke.device))
         check_inputs(KERNEL, model, state, joint_targets, joint_acts, joint_targets.shape[0],
                      planes.values())
         bq, bqd = state.body_q.contiguous(), state.body_qd.contiguous()

@@ -4,7 +4,9 @@ fixtures built by both packages, and seeded numpy problems handed to both.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import shutil
 
 import numpy as np
 
@@ -50,3 +52,19 @@ def a1_model(builder, import_urdf, contact_mode="hull"):
     model = b.finalize().make_ground_contacts(contact_mode)
     model.joint_attach_ke, model.joint_attach_kd = 16000.0, 200.0
     return model
+
+
+@contextlib.contextmanager
+def private_jax_rasterizer(tmpdir):
+    """The JAX package's SoftwareRenderer with its library built by its own
+    ``_load_lib`` (its g++ flags) into ``tmpdir``: the package rebuilds
+    ``csrc/librasterizer.so`` in place when it is missing, which is not safe
+    while several test processes render at once."""
+    import pytest
+    import ppr_diffphys_tpu.utils.render as jrender
+
+    shutil.copy(os.path.join(os.path.dirname(TESTS_DIR), "csrc", "rasterizer.cpp"), tmpdir)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jrender, "_find_csrc", lambda: str(tmpdir))
+        mp.setattr(jrender, "_LIB", None)
+        yield

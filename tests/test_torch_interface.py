@@ -219,6 +219,42 @@ def test_eval_forward_camera_and_query(models):
     np.testing.assert_allclose(dt_.numpy(), np.asarray(dj), atol=1e-5, rtol=0)
 
 
+def test_query_renders_with_its_cameras(models, tmp_path, monkeypatch):
+    """The lab4d eval's query(img_size), rendered by the port's
+    PhysVisualizer with its cameras, gives the frames and OBJ strips the JAX
+    package's PhysVisualizer gives on the same data (the streams target,
+    sim, control_ref, distilled and all)."""
+    import ppr_diffphys_tpu.utils.io as jio
+    import ppr_diffphys_tpu.utils.vis as jvis
+    import ppr_diffphys_torch.utils.io as tio
+    import ppr_diffphys_torch.utils.vis as tvis
+
+    _, tm = models
+    tm.reinit_envs(1, frames_per_wdw=int(OFFSETS[-1]), is_eval=True)
+    tm.forward(frame_start=np.zeros(1, np.float32))
+    data = dict(tm.query(img_size=(96, 128, 0.5)), model=tm.env)
+    out = {}
+    with H.private_jax_rasterizer(tmp_path):
+        for name, vis_mod, io_mod in (("jax", jvis, jio), ("port", tvis, tio)):
+            frames = {}
+            monkeypatch.setattr(io_mod, "save_vid", lambda path, fr, **kw: frames.__setitem__(
+                os.path.basename(path), np.stack(fr)))
+            vis = vis_mod.PhysVisualizer(str(tmp_path / name))
+            vis.show(0, data)
+            vis.log.close()
+            objs = {n: (tmp_path / name / n).read_bytes() for n in os.listdir(tmp_path / name)
+                    if n.endswith(".obj")}
+            out[name] = frames, objs
+    (jfr, jobj), (tfr, tobj) = out["jax"], out["port"]
+    assert sorted(tfr) == sorted(jfr) == sorted(
+        "%s-00000" % k for k in ("target", "sim", "control_ref", "distilled", "all"))
+    for k in jfr:
+        assert tfr[k].shape[:3] == (OFFSETS[-1], 48, 64 * (4 if k.startswith("all") else 1))
+        np.testing.assert_array_equal(tfr[k], jfr[k], err_msg=k)
+    assert sorted(tobj) == ["distilled_traj-00000.obj", "sim_traj-00000.obj"]
+    assert tobj == jobj
+
+
 def test_overrides_and_kinematics_proxy(models):
     """The override_* round trips (values copied, tensors kept for the
     optimizer) and KinematicsProxy's queries and syncs, as the JAX ones."""

@@ -6,7 +6,9 @@ and atan2 in all four quadrants and on the axes.
 Tolerance: both sides compute in fp32 on the CPU with the same formulas,
 so they agree to a few ulp of the values involved: atol 2e-6 for unit-scale
 outputs (quaternions, rotations, angles), 1e-5 where the output is a
-composition of several transforms (se3 round trips, frame rotations).
+composition of several transforms (se3 round trips, frame rotations), 1e-6
+for the reference-surface helpers (quat_rpy, quat_twist, transform_inverse,
+...), and equality where the op only moves values.
 """
 
 import numpy as np
@@ -45,6 +47,8 @@ T7b = np.concatenate([RNG.randn(len(Q), 3).astype(np.float32), Q2], -1)
 D6 = np.concatenate([RNG.randn(len(Q), 3) * 0.1, ROTVEC[: len(Q)]], -1).astype(np.float32)
 QD6 = RNG.randn(len(Q), 6).astype(np.float32)
 AXIS = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (len(Q), 1))
+AXIS_RAND = RNG.randn(len(Q), 3).astype(np.float32)
+AXIS_RAND /= np.linalg.norm(AXIS_RAND, axis=-1, keepdims=True)
 
 
 def _mats(q):
@@ -76,6 +80,20 @@ CASES = {
     "rotate_frame": (lambda m, g, a: m.rotate_frame(g, a), (T7[0], T7), 1e-5),
     "rotate_frame_vel": (lambda m, g, v: m.rotate_frame_vel(g, v), (T7[0], QD6), 1e-5),
     "swap_lin_ang": (lambda m, v: m.swap_lin_ang(v), (np.concatenate([QD6, V], -1),), 0),
+    # the reference-surface helpers, within 1e-6
+    "quat_rpy": (lambda m, r, p, y: m.quat_rpy(r, p, y), tuple(ANGLES.T), 1e-6),
+    "quat_rpy_scalar": (lambda m, r, p, y: m.quat_rpy(r, p, y), tuple(ANGLES[0]), 1e-6),
+    "quat_twist": (lambda m, a, x: m.quat_twist(a, x), (AXIS_RAND, Q), 1e-6),
+    "quat_twist_angle": (lambda m, a, x: m.quat_twist_angle(a, x), (AXIS_RAND, Q), 1e-6),
+    "transform_identity": (lambda m: m.transform_identity((3, 2)), (), 0),
+    "make_transform": (lambda m, p, q: m.make_transform(p, q), (V, Q), 0),
+    "transform_inverse": (lambda m, a: m.transform_inverse(a), (T7,), 1e-6),
+    "transform_vector": (lambda m, a, v: m.transform_vector(a, v), (T7, V), 1e-6),
+    "spatial_top": (lambda m, v: m.spatial_top(v), (QD6,), 0),
+    "spatial_bottom": (lambda m, v: m.spatial_bottom(v), (QD6,), 0),
+    "make_spatial": (lambda m, a, b: m.make_spatial(a, b), (V, V[::-1]), 0),
+    "acos": (lambda m, x: m.kernel_math.acos(x), (np.linspace(-1.2, 1.2, 49, dtype=np.float32),),
+             1e-6),
 }
 
 
@@ -121,8 +139,11 @@ def test_kernel_math_matches_jax(fn):
 
 
 def test_ops_names_are_jax_counterparts():
-    """Every op the port exports (it carries only what its slices use) has a
-    JAX counterpart of the same name; ``cross`` is the port's own helper."""
+    """The port exports every op of the JAX package's ``ops``, and each op it
+    exports has a JAX counterpart of the same name; ``cross`` is the port's
+    own helper."""
     names = [n for n in dir(T) if not n.startswith("_") and n != "cross"]
     for name in names:
         assert hasattr(J, name), name
+    for name in (n for n in dir(J) if not n.startswith("_")):
+        assert hasattr(T, name), name

@@ -129,7 +129,9 @@ print(" ".join(mods))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = out.stdout.split()
-    assert len(mods) >= 29
+    assert len(mods) >= 39
     for m in ("sim.soa_grad", "models.losses", "models.phys_model", "main", "bench",
-              "utils.h100", "models.fields", "models.interface", "utils.autodiff"):
+              "utils.h100", "models.fields", "models.interface", "utils.autodiff",
+              "utils.vis", "utils.render", "utils.io", "utils.projection", "utils.colors",
+              "models.torch_adapter", "render_intermediate"):
         assert "ppr_diffphys_torch." + m in mods, m

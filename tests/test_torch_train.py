@@ -13,6 +13,7 @@ entry (measured ~1e-5), parameters after 3 updates to 1e-5 relative plus
 1e-5 absolute (measured 3e-5 absolute on target_ke ~ 220).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -108,20 +109,82 @@ def test_eval_forward_runs_the_window(models):
     assert any(isinstance(k, tuple) and k[0] == "window" for k in tm._kernels)
 
 
+def test_reference_surface_helpers_match_jax(models):
+    """get_mocap_data and get_net_pred within 1e-5 of each output's largest
+    entry on the same parameters (fp32 MLPs in two frameworks: measured
+    ~1.3e-6 on vel_mlp's outputs of up to ~3); rearrange_pred, the
+    optimizable groups with their lrs, and rm_module_prefix equal."""
+    jm, tm = models
+    tm.load_params_from_jax(jax.tree.map(np.asarray, jm.params))
+    steps = np.array([[0.0, 1.5, 7.25, 20.0], [3.0, 3.5, 40.0, 46.9]], np.float32)
+    jd, td = jm.get_mocap_data(steps), tm.get_mocap_data(steps)
+    assert set(jd) == set(td)
+    for k in jd:
+        want = np.asarray(jd[k])
+        np.testing.assert_allclose(td[k].numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=k)
+    jp, tp = jm.get_net_pred(steps), tm.get_net_pred(steps)
+    for name, j, t in zip(("torques", "delta_root", "delta_ja", "state_qd", "res_f"), jp, tp):
+        want = np.asarray(j)
+        assert t.shape == want.shape, name
+        np.testing.assert_allclose(t.detach().numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=name)
+    rng = np.random.RandomState(4)
+    args = [rng.randn(2, 4, n).astype(np.float32)
+            for n in (7, tm.n_dof, 6 + tm.n_dof, tm.n_dof, 6 * tm.n_links)]
+    for name, j, t in zip(("ref_ja", "qq", "qd", "torques", "res_f"),
+                          jm.rearrange_pred(*[jax.numpy.asarray(a) for a in args]),
+                          tpm.phys_model.rearrange_pred(*[torch.as_tensor(a) for a in args])):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+    (jref, _, jlr), (tref, tparams, tlr) = (jm.get_optimizable_param_list(),
+                                            tm.get_optimizable_param_list())
+    assert [list(d) for d in tref] == [list(d) for d in jref]
+    assert tlr == jlr
+    named = dict(tm.named_tensors())
+    assert tparams[[list(d)[0] for d in tref].index("global_q")] is named["global_q"]
+    states = {"module.a": 1, "b": 2, "module": 3, "modulex.c": 4}
+    assert tm.rm_module_prefix(states) == jm.rm_module_prefix(states) == {
+        "a": 1, "b": 2, "module": 3, "modulex.c": 4}
+
+
 def test_cli_runs_on_cpu(tmp_path):
-    """python -m ppr_diffphys_torch.main --device cpu: 1 round of 2 iters,
-    JSON loss lines on stdout and the round checkpoints."""
+    """python -m ppr_diffphys_torch.main --device cpu --render_vis: 1 round of
+    2 iters (rounds start at iters 0 and 2), JSON loss lines on stdout, and
+    the files a round of the JAX CLI writes (checkpoints, the four videos,
+    the OBJ strip, tensorboard events, whose eval/traj and per-iteration
+    loss scalars equal the JSON lines) plus the --profile_dir trace."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    prof = tmp_path / "prof"
     cmd = [sys.executable, "-m", "ppr_diffphys_torch.main", "--device", "cpu",
            "--urdf_template", "a1", "--seqname", H.SEQNAME, "--datadir", H.MOTION_DIR,
            "--urdf_dir", H.FIXTURES, "--logroot", str(tmp_path), "--num_rounds", "1",
-           "--iters_per_round", "2", "--num_envs", "2", "--frames_per_wdw", "3"]
+           "--iters_per_round", "2", "--num_envs", "2", "--frames_per_wdw", "3",
+           "--render_vis", "--profile_dir", str(prof)]
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(cmd, cwd=str(tmp_path), env=env, capture_output=True, text=True,
                          timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
-    lines = [l for l in out.stdout.splitlines() if l.startswith("{")]
-    assert sum('"total_loss"' in l for l in lines) == 3  # iters 0, 1, 2
-    assert sum('"eval/traj"' in l for l in lines) == 2
+    lines = [json.loads(l) for l in out.stdout.splitlines() if l.startswith("{")]
+    losses = [l for l in lines if "total_loss" in l]
+    evals = [l for l in lines if "eval/traj" in l]
+    assert [l["it"] for l in losses] == [0, 1, 2]
+    assert [l["it"] for l in evals] == [0, 2]
     save = tmp_path / ("%s-dynamics" % H.SEQNAME)
-    for name in ("ckpt_phys_0000.pth", "ckpt_phys_0002.pth", "ckpt_phys_best.pth"):
-        assert (save / name).exists(), name
+    names = sorted(os.listdir(save))
+    events = [n for n in names if n.startswith("events.out.tfevents.")]
+    want = ["ckpt_phys_%s.pth" % s for s in ("0000", "0002", "best", "latest")]
+    for it in ("00000", "00002"):
+        want += ["%s-%s.mp4" % (s, it) for s in ("target", "sim", "control_ref", "all")]
+        want.append("sim_traj-%s.obj" % it)
+    assert sorted(n for n in names if n not in events) == sorted(want)
+    assert len(events) == 1
+    for n in names:
+        assert (save / n).stat().st_size > 0, n
+    acc = EventAccumulator(str(save))
+    acc.Reload()
+    for key, recs in (("eval/traj", evals), ("loss", losses), ("loss_traj", losses),
+                      ("iter_time", losses)):
+        got = [(e.step, e.value) for e in acc.Scalars(key)]
+        assert got == [(r["it"], pytest.approx(r[key], rel=1e-6)) for r in recs], key
+    assert (prof / "trace.json").stat().st_size > 0

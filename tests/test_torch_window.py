@@ -140,6 +140,9 @@ def test_traced_planes_match_jax(models, per_env):
     jpl = jsoa.traced_planes(jm, jp)
     tpl = tsoa.traced_planes(tm, tp)
     assert set(tpl) == set(jsoa.TRACED_NAMES)
+    # the window wrapper's call, with its copy of the dof index kept per device
+    cached = tsoa.traced_planes(tm, tp, tsoa.PackedConsts(tm).dof_index("cpu"))
+    assert all(torch.equal(cached[k], tpl[k]) for k in tpl)
     for k in jsoa.TRACED_NAMES:
         assert tpl[k].shape == jpl[k].shape, k
         # inverses come from two LAPACK calls: 1e-6 relative
