@@ -117,6 +117,24 @@ Phases (any failure exits non-zero):
     the principal point at the centre of lab4d's 480 x 640 frames); (c)
     render_intermediate over (a)'s OBJ strips; the host time of vis.show per
     round and of the rasterizer per stream frame, beside the nvidia-smi line;
+12. multi-GPU on one card (``parallel/sharding.py``): two ranks as spawned
+    processes, both on cuda:0 (gloo through a FileStore: NCCL takes one rank
+    per card), against this process's one-process runs of the same paths:
+    (a) the training CLI (``main.train_one``) on a1 at 512 envs x 24 frames
+    with --ngpu 2 --mesh_shape dp=2 (256 envs a rank), one round of 2
+    iterations (the loop runs 3; evals at 0 and 2) without videos; (b) the
+    same with --mesh_shape dp=1,tp=2 at 64 envs (each rank holds every env,
+    and every trunk layer's activations cross the host through gloo, E_TP);
+    (c) the lab4d step (phase 10's interface and parameters) at 8 envs x 8
+    frames, dp=2, 2 steps. Per rank the launch counts (one K1 per eval; one K2, K3 and
+    reduction per interval and iteration); losses and parameters after the
+    updates against one process within the stated tolerance; every rank's
+    parameters bit-identical (compared, and by ``replicas_agree``); rank 0
+    alone writes (the files, and no pickle.dump on rank 1); the step median
+    and the CUDA-event time of ``sum_grads`` and ``gather_envs`` per step.
+    (d) the comm helpers under a world-1 NCCL group on the card. NCCL
+    across two or more cards is not run here. A ``parallel`` JSON line
+    ("2 ranks sharing one card; not a scaling figure") holds the numbers;
  then a line quoting (not measuring) each kernel's wrapper time before
     its warp-per-env redesign, a ``kernels`` JSON line (``ms`` the
     wrapper's time by CUDA events, ``device_ms`` the device time of one
@@ -1063,6 +1081,7 @@ def lab4d_main_path(dev, sub_expect):
         fail("phase 10: no gradient reached object_field.articulation.rest_offsets")
     log("phase 10 lab4d main path: ok (%.1f s); rest_offsets gradient max %.3g"
         % (time.time() - t0, ro))
+    tree = tm.state_np()  # phase 12 (c) starts from these parameters
     del tm
     torch.cuda.empty_cache()
     row = lambda name, launches, err, ms, pms, roof, dms: {
@@ -1076,7 +1095,7 @@ def lab4d_main_path(dev, sub_expect):
             dict(row(soa_grad.KERNEL_BWD + "[with_xp]",
                      launches[soa_grad.KERNEL_BWD] + launches[soa_grad.KERNEL_REDUCE], k3_abs,
                      k3_ms, p3_ms, k3_roof, k3_dev_ms),
-                 replaces="ppr_diffphys_tpu/sim/pallas_soa_grad.py:526")], vis_data
+                 replaces="ppr_diffphys_tpu/sim/pallas_soa_grad.py:526")], vis_data, tree
 
 
 class FrameRecorder:
@@ -1309,6 +1328,501 @@ def vis_and_io(smi, lab4d_vis):
     log("phase 11 render_intermediate: %s frames from the CLI's 2 OBJ strips%s" % (
         fr.shape, ", written to sim_traj.mp4" if write_mp4 else ""))
     log("phase 11 vis and IO: ok (%.1f s)" % (time.time() - t0))
+
+
+# ---------------------------------------------------------------------------
+# phase 12: multi-GPU on one card
+# ---------------------------------------------------------------------------
+def cli_argv(logroot, envs, *extra):
+    """The training CLI's arguments of phase 12: a1 at ``envs`` envs x
+    F_TRAIN frames, one round of 2 iterations (the loop runs 3; evals at 0
+    and 2), no videos."""
+    return ["--urdf_template", "a1", "--seqname", "a1-synth",
+            "--datadir", os.path.join(REPO, "tests", "fixtures", "motion_sequences"),
+            "--urdf_dir", os.path.join(REPO, "tests", "fixtures"), "--logroot", logroot,
+            "--logname", "smoke", "--num_rounds", "1", "--iters_per_round", "2",
+            "--num_envs", str(envs), "--frames_per_wdw", str(F_TRAIN), "--seed", str(SEED),
+            "--no-render_vis"] + list(extra)
+
+
+def model_launches(model):
+    """Launches of a phys_model's own kernels: K1 (window) and the interval
+    kernels."""
+    from ppr_diffphys_torch.sim import soa
+
+    out = {soa.KERNEL: sum(k.launches for key, k in model._kernels.items()
+                           if key[0] == "window")}
+    for key, di in model._kernels.items():
+        if key[0] == "interval":
+            for k, v in di.launches.items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+class CommTimer:
+    """CUDA-event times of ``sharding.sum_grads`` and ``sharding.gather_envs``
+    calls on a mesh (the sharded train step's two collectives), while
+    active."""
+
+    NAMES = ("sum_grads", "gather_envs")
+
+    def __init__(self):
+        from ppr_diffphys_torch.parallel import sharding
+
+        self.mod, self.events = sharding, {n: [] for n in self.NAMES}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = {n: getattr(self.mod, n) for n in self.NAMES}
+        for n in self.NAMES:
+            inner, box = self.saved[n], self.events[n]
+
+            def timed(*a, _inner=inner, _box=box, _mesh_at=0 if n == "sum_grads" else 1):
+                if a[_mesh_at] is None:
+                    return _inner(*a)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = _inner(*a)
+                ev[1].record()
+                _box.append(ev)
+                return out
+
+            setattr(self.mod, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.mod, n, f)
+
+    def ms(self, steps):
+        import torch
+
+        torch.cuda.synchronize()
+        return {n + "_ms_per_step": sum(a.elapsed_time(b) for a, b in ev) / steps
+                for n, ev in self.events.items()}
+
+
+def run_cli(argv):
+    """``main.train_one`` on argv in this process: (its model, its JSON
+    lines, wall s, how many pickle.dump calls it made)."""
+    import contextlib
+    import io
+    import pickle
+
+    import torch
+    from ppr_diffphys_torch import main as tmain
+    from ppr_diffphys_torch.models import phys_model as pm_mod
+
+    built, dumps = [], []
+
+    class Recorded(pm_mod.phys_model):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    dump = pickle.dump
+
+    def counted(*a, **kw):
+        dumps.append(1)
+        return dump(*a, **kw)
+
+    out = io.StringIO()
+    pm_mod.phys_model, pickle.dump = Recorded, counted
+    try:
+        with contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            tmain.train_one(tmain.parse_args(argv))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        pm_mod.phys_model, pickle.dump = Recorded.__bases__[0], dump
+    lines = [json.loads(l) for l in out.getvalue().splitlines() if l.startswith("{")]
+    return built[0], lines, wall, len(dumps)
+
+
+def lab4d_from_tree(tree, dev, logroot):
+    """Phase 10's interface (its fields' specs from the same seed, a1 with
+    its calf links as kp links) with the parameters ``tree`` (the JAX
+    layout, as ``state_np`` gives them)."""
+    import torch
+    from ppr_diffphys_torch.data.robot import URDFRobot
+    from ppr_diffphys_torch.models import fields
+    from ppr_diffphys_torch.models.interface import phys_interface
+    from ppr_diffphys_torch.utils.config import build_opts
+
+    urdf_dir = os.path.join(REPO, "tests", "fixtures")
+    offsets = [0, LAB4D_FRAMES, 2 * LAB4D_FRAMES]
+    g = torch.Generator().manual_seed(SEED)
+    obj = fields.ObjectField(offsets, URDFRobot(os.path.join(urdf_dir, "a1", "urdf", "a1.urdf")),
+                             g)
+    scn = fields.CameraField(offsets, g, name="scene_field")
+    intr = fields.IntrinsicsField(offsets)
+    opts = build_opts(seqname="lab4d-a1", logname="chip", urdf_template="a1", urdf_dir=urdf_dir,
+                      logroot=logroot, seed=SEED, pos_distill_wt=0.1, phys_vid=[0, 1],
+                      noise_std=0.0)
+    md = dict(scene_field=(scn, scn.init_params), object_field=(obj, obj.init_params),
+              intrinsics=(intr, intr.init_params), frame_interval=1.0 / 60, frame_info=None)
+    tm = phys_interface(opts, md, device=dev)
+    tm.robot.urdf.kp_links = list(KP_LINKS_A1)
+    tm.load_params_from_jax(tree)
+    return tm
+
+
+def lab4d_steps(tm, n):
+    """n forward()+update() steps of the interface at E_SMALL envs x F_SMALL
+    frames from drawn frame starts: (per step its losses and grad/ norms,
+    walls s)."""
+    import torch
+
+    tm.reinit_envs(E_SMALL, frames_per_wdw=F_SMALL, is_eval=False)
+    losses, walls = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = tm.forward()
+        gd = tm.update()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(dict({k: float(v) for k, v in out.items()}, **gd))
+    return losses, walls
+
+
+LAB4D_PAR_STEPS = 2  # phase 12 (c)'s steps
+# phase 12 (b)'s envs: under tp every trunk layer's activations cross the
+# host through gloo forward and backward (~0.1-0.4 GB a layer a rank at 256
+# envs x 24 frames, 43 split layers a step), so (b) runs at 64 envs
+E_TP = 64
+
+
+def _rank_job(job, rank, dev, tmpdir):
+    import torch
+    from ppr_diffphys_torch.parallel import sharding
+
+    import contextlib
+    import io
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CommTimer() as ct, contextlib.redirect_stdout(io.StringIO()):
+        if job["kind"] == "cli":
+            model, lines, wall, dumps = run_cli(job["argv"])
+            steps = len([l for l in lines if "total_loss" in l]) or 3
+            res = dict(lines=lines, wall_s=wall, pickle_dumps=dumps)
+        else:
+            with open(job["tree"], "rb") as f:
+                import pickle
+
+                tree = pickle.load(f)
+            model = lab4d_from_tree(tree, dev, os.path.join(tmpdir, "lab4d%d" % rank))
+            losses, walls = lab4d_steps(model, LAB4D_PAR_STEPS)
+            steps = LAB4D_PAR_STEPS
+            res = dict(losses=losses, walls=walls)
+    mesh = model._mesh_for(model.num_envs if job["kind"] == "lab4d" else job["envs"])
+    res.update(ct.ms(steps), job_s=time.perf_counter() - t0, launches=model_launches(model),
+               params=model.state_np(),
+               agree=sharding.replicas_agree([t for _, t in model.named_tensors()]),
+               mesh=None if mesh is None else mesh.shape,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def rank_main(rank, world, tmpdir, jobs):
+    """One rank of phase 12: gloo through a FileStore, on cuda:0 (every
+    rank shares the one card), the jobs in order; writes its results."""
+    import pickle
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    sys.path.insert(0, REPO)
+    try:
+        import torch.distributed as dist
+        import ppr_diffphys_torch  # noqa: F401  (fp32, TF32 off)
+        from ppr_diffphys_torch.parallel import sharding
+
+        _, _, dev = sharding.init_distributed(
+            "cuda", backend="gloo", init_method="file://" + os.path.join(tmpdir, "store"),
+            timeout_s=300)
+        out = {job["name"]: _rank_job(job, rank, dev, tmpdir) for job in jobs}
+        out["backend"] = dist.get_backend()
+        dist.destroy_process_group()
+        with open(os.path.join(tmpdir, "rank%d.pkl" % rank), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(tmpdir, "rank%d.err" % rank), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def tree_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_leaves(v, prefix + k + "."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+# Sharded vs one process, on the card: each rank's MLP products, FK and
+# rollout run over its own envs (other row blocks, other cuBLAS choices) and
+# the gradient is summed in another order, so the two differ by rounding,
+# which the a1 landing amplifies over 759 substeps (measured: 1.05e-4 of
+# loss_reg_foot after the updates, NVIDIA H100 80GB HBM3 at 700 W), and
+# across a contact kink one env's gradient may jump (PERF.md §6). So losses,
+# and every tensor's gradient norm at the first step (the same parameters
+# on both sides: Adam's steps do not scale with the gradient, so the
+# parameters alone would not show a gradient summed wrongly), to
+# TOL_GRAD_SUM relative, as phase 10 holds two roundings of one step;
+# parameters after the updates to 1e-5 relative plus 1e-5 absolute, except
+# entries whose gradient is within rounding of Adam's eps (1e-8), which may
+# take another step: at most 1e-4 of a tensor's entries, each within Adam's
+# step bound (the largest peak lr, 1e-3, per update). The lab4d step (c) runs
+# 8 envs, each 1/8 of a gradient: one env's kink moves a gradient norm by up
+# to 2.5e-4 there, and more entries take another Adam step (measured: 57 of
+# ~1.9M, the largest 9.9e-5; one process alone gives the same bits run to
+# run at that size), so (c)'s entries are held to the step bound alone.
+PAR_LOSS_RTOL = TOL_GRAD_SUM
+
+
+def par_compare(label, losses, ref_losses, params, ref_params, updates, entry_rule=True):
+    """Largest loss, first-step gradient-norm and parameter differences
+    against one process, and the problems beyond the tolerances above (the
+    caller logs, then fails); ``entry_rule`` False holds the parameters to
+    Adam's step bound alone."""
+    loss_rel, worst_loss = max((abs(a[k] - b[k]) / max(abs(b[k]), 1e-12), "%s at step %d"
+                                % (k, i)) for i, (a, b) in enumerate(zip(losses, ref_losses))
+                               for k in b if k.startswith("loss") or k == "total_loss")
+    norms = {k: v for k, v in ref_losses[0].items() if k.startswith("grad/")}
+    grad_rel, worst_grad = max(((abs(losses[0].get(k, np.inf) - v) / max(abs(v), 1e-12), k)
+                                for k, v in norms.items()), default=(np.inf, "none"))
+    got, want = tree_leaves(params), tree_leaves(ref_params)
+    if set(got) != set(want):
+        fail("%s: parameter names differ from one process's" % label)
+    worst, off, problems = 0.0, {}, []
+    for k, w in want.items():
+        d = np.abs(got[k] - w)
+        worst = max(worst, float(d.max()))
+        n_off = int((d > 1e-5 + 1e-5 * np.abs(w)).sum())
+        if n_off:
+            off[k] = n_off
+        if (entry_rule and n_off > max(1, 1e-4 * d.size)) or d.max() > 1e-3 * updates:
+            problems.append("parameter %s differs from one process's by %.3g (%d entries "
+                            "beyond 1e-5 + 1e-5 |p|)" % (k, float(d.max()), n_off))
+    if not loss_rel <= PAR_LOSS_RTOL:
+        problems.append("losses differ from one process's by %.3g relative (%s)"
+                        % (loss_rel, worst_loss))
+    if not grad_rel <= PAR_LOSS_RTOL:
+        problems.append("first-step gradient norms differ from one process's by %.3g "
+                        "relative (%s)" % (grad_rel, worst_grad))
+    return dict(max_loss_rel_diff=loss_rel, max_loss_rel_diff_at=worst_loss,
+                first_step_grad_norms=len(norms), max_grad_norm_rel_diff=grad_rel,
+                max_grad_norm_rel_diff_at=worst_grad, max_param_abs_diff=worst,
+                entries_beyond_1e5=sum(off.values())), problems
+
+
+def multi_gpu(smi, lab4d_tree):
+    """Phase 12 (see the module docstring). Returns the ``parallel`` line."""
+    import contextlib
+    import io
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from ppr_diffphys_torch.parallel import sharding
+    from ppr_diffphys_torch.sim import soa, soa_grad
+
+    t0 = time.time()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_par")
+    root = tmp.name
+    n_int = F_TRAIN - 1
+    want_launches = {soa.KERNEL: 2, soa_grad.KERNEL_FWD: 3 * n_int,
+                     soa_grad.KERNEL_BWD: 3 * n_int, soa_grad.KERNEL_REDUCE: 3 * n_int}
+
+    # one process: the references
+    refs = {}
+    for name, envs in (("dp2", E_TRAIN), ("tp2", E_TP)):
+        model, lines, wall, _ = run_cli(cli_argv(os.path.join(root, "one%d" % envs), envs))
+        refs[name] = dict(losses=[l for l in lines if "total_loss" in l],
+                          params=model.state_np(),
+                          step_ms=float(np.median([l["iter_time"] for l in lines
+                                                   if "iter_time" in l])) * 1e3)
+        del model
+    with contextlib.redirect_stdout(io.StringIO()):  # its lr table
+        tm = lab4d_from_tree(lab4d_tree, torch.device("cuda"), os.path.join(root, "one_lab4d"))
+    losses, walls = lab4d_steps(tm, LAB4D_PAR_STEPS)
+    refs["lab4d"] = dict(losses=losses, params=tm.state_np(),
+                         step_ms=float(np.median(walls)) * 1e3)
+    del tm
+    torch.cuda.empty_cache()
+    log("phase 12 one-process references (a1 CLI at %d and %d envs x %d frames, the lab4d "
+        "step at %d envs x %d frames): %.1f s"
+        % (E_TRAIN, E_TP, F_TRAIN, E_SMALL, F_SMALL, time.time() - t0))
+
+    # two ranks on the card, gloo: (a) dp=2, (b) dp=1,tp=2, (c) the lab4d step
+    tree_path = os.path.join(root, "lab4d_tree.pkl")
+    with open(tree_path, "wb") as f:
+        pickle.dump(lab4d_tree, f)
+    dp_root, tp_root = os.path.join(root, "dp2"), os.path.join(root, "tp2")
+    jobs = [dict(name="dp2", kind="cli", envs=E_TRAIN,
+                 argv=cli_argv(dp_root, E_TRAIN, "--ngpu", "2", "--mesh_shape", "dp=2")),
+            dict(name="tp2", kind="cli", envs=E_TP,
+                 argv=cli_argv(tp_root, E_TP, "--ngpu", "2", "--mesh_shape", "dp=1,tp=2")),
+            dict(name="lab4d", kind="lab4d", tree=tree_path)]
+    t1 = time.time()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(r, 2, root, jobs)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, 600 - (time.time() - t1)))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errs = {r: open(os.path.join(root, "rank%d.err" % r)).read()[-3000:] for r in range(2)
+            if os.path.exists(os.path.join(root, "rank%d.err" % r))}
+    if hung or errs or any(p.exitcode != 0 for p in procs):
+        fail("phase 12: ranks %s still running after 600 s; exit codes %s; failures %s"
+             % (hung, [p.exitcode for p in procs], errs))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, "rank%d.pkl" % r), "rb") as f:
+            ranks.append(pickle.load(f))
+    log("phase 12 two ranks (gloo, both on cuda:0): %.1f s incl. start-up" % (time.time() - t1))
+
+    configs = []
+    for name, mesh, envs, root_dir in (("dp2", {"dp": 2, "tp": 1}, E_TRAIN, dp_root),
+                                       ("tp2", {"dp": 1, "tp": 2}, E_TP, tp_root)):
+        rs = [rk[name] for rk in ranks]
+        label = "phase 12 (%s) CLI %s at %d envs x %d frames" % (
+            "a" if name == "dp2" else "b", name, envs, F_TRAIN)
+        if [r["mesh"] for r in rs] != [mesh, mesh]:
+            fail("%s: meshes %s" % (label, [r["mesh"] for r in rs]))
+        for r, res in enumerate(rs):
+            if res["launches"] != want_launches:
+                fail("%s: rank %d launches %s, expected %s" % (label, r, res["launches"],
+                                                                 want_launches))
+        lines0 = rs[0]["lines"]
+        iters = [l for l in lines0 if "total_loss" in l]
+        if [l["it"] for l in iters] != [0, 1, 2] or rs[1]["lines"]:
+            fail("%s: rank 0 printed iterations %s, rank 1 %d lines" % (
+                label, [l["it"] for l in iters], len(rs[1]["lines"])))
+        cmp, problems = par_compare(label, iters, refs[name]["losses"], rs[0]["params"],
+                                    refs[name]["params"], 3)
+        a, b = tree_leaves(rs[0]["params"]), tree_leaves(rs[1]["params"])
+        if not (all(np.array_equal(a[k], b[k]) for k in a) and rs[0]["agree"]
+                and rs[1]["agree"]):
+            fail("%s: the ranks' parameters are not bit-identical" % label)
+        save = os.path.join(root_dir, "a1-synth-smoke")
+        names = sorted(os.listdir(save))
+        events = [n for n in names if n.startswith("events.out.tfevents.")]
+        want_files = sorted(["ckpt_phys_%s.pth" % s for s in ("0000", "0002", "best", "latest")]
+                            + ["sim_traj-%s.obj" % i for i in ("00000", "00002")])
+        if len(events) != 1 or sorted(set(names) - set(events)) != want_files \
+                or rs[1]["pickle_dumps"] != 0:
+            fail("%s: files %s, rank 1 pickled %d times: rank 0 alone must write"
+                 % (label, names, rs[1]["pickle_dumps"]))
+        step_ms = float(np.median([l["iter_time"] for l in iters])) * 1e3
+        configs.append(dict(
+            name=name, path="main.train_one (a1 CLI)", mesh=mesh, backend=ranks[0]["backend"],
+            ranks=2, envs=envs, frames=F_TRAIN, step_median_ms=step_ms,
+            one_process_step_median_ms=refs[name]["step_ms"],
+            sum_grads_ms_per_step=rs[0]["sum_grads_ms_per_step"],
+            gather_envs_ms_per_step=rs[0]["gather_envs_ms_per_step"],
+            peak_gb_per_rank=[r["peak_gb"] for r in rs], launches_per_rank=rs[0]["launches"],
+            job_s_per_rank=[r["job_s"] for r in rs],
+            **cmp))
+        log("%s: step median %.3f ms (one process %.3f ms); sum_grads %.3f and gather_envs "
+            "%.3f ms per step; peak %s GB and job %s s per rank; launches per rank %s; "
+            "against one process %s; ranks bit-identical; rank 0 alone wrote %s"
+            % (label, step_ms, refs[name]["step_ms"], rs[0]["sum_grads_ms_per_step"],
+               rs[0]["gather_envs_ms_per_step"], [round(r["peak_gb"], 3) for r in rs],
+               [round(r["job_s"], 1) for r in rs], json.dumps(rs[0]["launches"]),
+               json.dumps(cmp), names))
+        if problems:
+            fail("%s: %s" % (label, "; ".join(problems)))
+
+    # (c) the lab4d step at dp=2
+    rs = [rk["lab4d"] for rk in ranks]
+    label = "phase 12 (c) lab4d step dp2 at %d envs x %d frames" % (E_SMALL, F_SMALL)
+    want_xp = {soa_grad.KERNEL_FWD: LAB4D_PAR_STEPS * (F_SMALL - 1),
+               soa_grad.KERNEL_BWD: LAB4D_PAR_STEPS * (F_SMALL - 1),
+               soa_grad.KERNEL_REDUCE: LAB4D_PAR_STEPS * (F_SMALL - 1), soa.KERNEL: 0}
+    for r, res in enumerate(rs):
+        if res["mesh"] != {"dp": 2, "tp": 1} or res["launches"] != want_xp:
+            fail("%s: rank %d mesh %s, launches %s, expected %s"
+                 % (label, r, res["mesh"], res["launches"], want_xp))
+        if not all(np.isfinite(v) for l in res["losses"] for v in l.values()) \
+                or not res["losses"][-1]["loss_pos_distill"] > 0:
+            fail("%s: rank %d losses %s" % (label, r, res["losses"]))
+    cmp, problems = par_compare(label, rs[0]["losses"], refs["lab4d"]["losses"],
+                                rs[0]["params"], refs["lab4d"]["params"], LAB4D_PAR_STEPS,
+                                entry_rule=False)
+    a, b = tree_leaves(rs[0]["params"]), tree_leaves(rs[1]["params"])
+    if not (all(np.array_equal(a[k], b[k]) for k in a) and rs[0]["agree"] and rs[1]["agree"]):
+        fail("%s: the ranks' parameters are not bit-identical" % label)
+    step_ms = float(np.median(rs[0]["walls"])) * 1e3
+    configs.append(dict(
+        name="lab4d_dp2", path="phys_interface forward()+update()", mesh={"dp": 2, "tp": 1},
+        backend=ranks[0]["backend"], ranks=2, envs=E_SMALL, frames=F_SMALL,
+        step_median_ms=step_ms, one_process_step_median_ms=refs["lab4d"]["step_ms"],
+        sum_grads_ms_per_step=rs[0]["sum_grads_ms_per_step"],
+        gather_envs_ms_per_step=rs[0]["gather_envs_ms_per_step"],
+        peak_gb_per_rank=[r["peak_gb"] for r in rs], launches_per_rank=rs[0]["launches"],
+        job_s_per_rank=[r["job_s"] for r in rs],
+        **cmp))
+    log("%s: step median %.3f ms (one process %.3f ms); sum_grads %.3f and gather_envs %.3f ms "
+        "per step; job %s s per rank; launches per rank %s; against one process %s; ranks "
+        "bit-identical"
+        % (label, step_ms, refs["lab4d"]["step_ms"], rs[0]["sum_grads_ms_per_step"],
+           rs[0]["gather_envs_ms_per_step"], [round(r["job_s"], 1) for r in rs],
+           json.dumps(rs[0]["launches"]), json.dumps(cmp)))
+    if problems:
+        fail("%s: %s" % (label, "; ".join(problems)))
+
+    # (d) the comm helpers under a world-1 NCCL group on the card
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(root, "nccl_store"),
+                            rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh({"dp": 1})
+        rng = np.random.RandomState(SEED + 20)
+        x = torch.tensor(rng.randn(E_TRAIN, 4 * F_TRAIN + 2).astype(np.float32), device="cuda",
+                         requires_grad=True)
+        full = sharding.gather_envs(x, mesh)
+        (g,) = torch.autograd.grad((full * 3.0).sum(), x)
+        grads = [torch.tensor(rng.randn(*s).astype(np.float32), device="cuda")
+                 for s in ((256, 256),) * 30 + ((256,),) * 30]
+        summed = sharding.sum_grads(mesh, grads, [None] * len(grads))
+        ok = (torch.equal(full, x) and torch.equal(g, torch.full_like(x, 3.0))
+              and all(torch.equal(a, b) for a, b in zip(summed, grads))
+              and sharding.replicas_agree(grads)
+              and sharding.broadcast_from_rank0([1.5, -2.0]) == [1.5, -2.0])
+        n_floats = sum(t.numel() for t in grads)
+        sg_ms, _ = cuda_time_ms(lambda: sharding.sum_grads(mesh, grads, [None] * len(grads)), 10)
+        ge_ms, _ = cuda_time_ms(lambda: sharding.gather_envs(x.detach(), mesh), 10)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        sharding._mesh_cache.clear()
+    if not ok or backend != "nccl":
+        fail("phase 12 (d): the comm helpers under a world-1 %s group disagree" % backend)
+    nccl = dict(backend=backend, ranks=1, sum_grads_ms=sg_ms, sum_grads_floats=n_floats,
+                gather_envs_ms=ge_ms, gather_envs_rows=E_TRAIN)
+    log("phase 12 (d) comm helpers under a world-1 NCCL group on the card: gather_envs "
+        "(values, slice-only backward), sum_grads, replicas_agree, broadcast_from_rank0 ok; "
+        "sum_grads of %d floats %.3f ms, gather_envs of %d rows %.3f ms (CUDA events, 10 "
+        "calls)" % (n_floats, sg_ms, E_TRAIN, ge_ms))
+    tmp.cleanup()
+    log("phase 12 multi-GPU on one card: ok (%.1f s)" % (time.time() - t0))
+    return dict(note="2 ranks sharing one card; not a scaling figure", device=smi,
+                configs=configs, nccl_world1=nccl)
 
 
 def main():
@@ -1939,10 +2453,13 @@ def main():
     anchor_checks(dev, a1, sub, m.dt)
 
     # ---- 10. the lab4d main path ---------------------------------------------------
-    xp_rows, lab4d_vis = lab4d_main_path(dev, sub)
+    xp_rows, lab4d_vis, lab4d_tree = lab4d_main_path(dev, sub)
 
     # ---- 11. vis and IO on the card's paths ---------------------------------------
     vis_and_io(smi, lab4d_vis)
+
+    # ---- 12. multi-GPU on one card ---------------------------------------------------
+    parallel = multi_gpu(smi, lab4d_tree)
     log("total %.1f s" % (time.time() - t_all))
 
     # ---- results -----------------------------------------------------------------
@@ -2009,6 +2526,7 @@ def main():
         "kernel ran one thread per env, each from the last run before its warp-per-env "
         "redesign (NVIDIA H100 80GB HBM3 at 700 W): %s"
         % json.dumps(QUOTED_THREAD_PER_ENV_MS))
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

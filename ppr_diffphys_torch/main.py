@@ -12,10 +12,20 @@ tensorboard in the run's directory and printed as JSON lines on stdout;
 ``--profile_dir`` traces iterations 2-4 with ``torch.profiler`` into a
 Chrome trace there. Flags carry ``main.py``'s names and defaults, plus
 ``--device`` (default cuda; ``--device cpu`` runs the plain PyTorch versions
-of the kernels). Left out: the TPU engine and tiling flags
+of the kernels) and ``--dist_url``. Left out: the TPU engine and tiling flags
 (``phys_engine``, ``eval_engine``, ``soa_e_tile``, ``soa_ksub``,
 ``rollout_unroll``); ``ckpt_backend`` (orbax is a JAX library; checkpoints
-are pickles); ``mesh_shape`` and ``ngpu`` (multi-GPU is not ported yet).
+are pickles).
+
+Multi-GPU, one process per card (``parallel/sharding.py``):
+
+    torchrun --nproc_per_node 8 -m ppr_diffphys_torch.main --num_envs 512 ...
+
+Each rank runs on ``cuda:<LOCAL_RANK>``; ``--ngpu`` budgets the ranks (-1:
+all) and ``--mesh_shape`` shapes the mesh (``dp=4,tp=2``; empty: dp over
+the budget). Every rank runs every iteration and the eval; rank 0 alone
+writes the checkpoints, ``ckpt_phys_best.pth``, videos, OBJ strips,
+tensorboard, the JSON lines and the ``--profile_dir`` trace.
 """
 
 from __future__ import annotations
@@ -32,7 +42,14 @@ NOISE_STD_DEFAULT = 2e-3
 def parse_args(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     add = p.add_argument
-    add("--local_rank", type=int, default=0, help="for distributed training")
+    add("--local_rank", type=int, default=0,
+        help="for distributed training (LOCAL_RANK, as torchrun sets it, wins)")
+    add("--ngpu", type=int, default=-1,
+        help="rank budget: -1 = all ranks of the world (envs dp-shard over the mesh)")
+    add("--mesh_shape", default="",
+        help="device mesh, e.g. 'dp=4,tp=2'; empty = auto dp over all ranks")
+    add("--dist_url", default="",
+        help="torch.distributed init method (empty: env://, as torchrun sets it)")
     add("--accu_steps", type=int, default=1, help="gradient accumulation steps")
     add("--seqname", default="mi-pace", help="name of the sequence")
     add("--logroot", default="logdir/", help="root directory for output")
@@ -88,19 +105,38 @@ def parse_args(argv=None) -> dict:
     return vars(p.parse_args(argv))
 
 
+def _rank0() -> bool:
+    from .parallel import sharding
+
+    return sharding.rank() == 0
+
+
 def log(record: dict):
-    print(json.dumps(record), flush=True)
+    if _rank0():
+        print(json.dumps(record), flush=True)
+
+
+class _Silent:
+    """The visualizer of a rank other than 0: it writes nothing (rank 0
+    alone calls ``show``)."""
+
+    def write_log(self, log_data, step):
+        pass
+
+    def close(self):
+        pass
 
 
 def train_one(opts):
-    """One training run; returns (best_eval_score, best_ckpt_path)."""
+    """One training run; returns (best_eval_score, best_ckpt_path). In a
+    torch.distributed world every rank calls it; rank 0 writes."""
     from .utils.config import build_opts
     from .utils.vis import PhysVisualizer
 
     opts = build_opts(**opts)
     logname = "%s-%s" % (opts["seqname"], opts["logname"])
     save_dir = os.path.join(opts["logroot"], logname)
-    vis = PhysVisualizer(save_dir, render_video=opts["render_vis"])
+    vis = PhysVisualizer(save_dir, render_video=opts["render_vis"]) if _rank0() else _Silent()
     try:
         return _train(opts, save_dir, vis)
     finally:
@@ -134,9 +170,11 @@ def _train(opts, save_dir, vis):
             if opts["eval_selection"] and (best_score is None or eval_score < best_score):
                 best_score, best_it = eval_score, it
             t = time.time()
-            data = model.query()
-            data["model"] = model.env
-            vis.show(it, data, fps=1.0 / model.frame_interval, render_video=opts["render_vis"])
+            if _rank0():
+                data = model.query()
+                data["model"] = model.env
+                vis.show(it, data, fps=1.0 / model.frame_interval,
+                         render_video=opts["render_vis"])
             log({"it": it, "eval/traj": eval_score, "vis_time": time.time() - t})
             if opts["wdw_schedule"]:
                 fpw = int(0.5 * (model.total_frames - 1) / model.total_iters * it + 1)
@@ -148,7 +186,7 @@ def _train(opts, save_dir, vis):
                 model.reinit_envs(opts["num_envs"], frames_per_wdw=opts["frames_per_wdw"],
                                   is_eval=False)
 
-        if opts["profile_dir"]:
+        if opts["profile_dir"] and _rank0():
             if it == 2:
                 profiler = _start_profile(model.device)
             elif it == 5:
@@ -173,7 +211,7 @@ def _train(opts, save_dir, vis):
         _stop_profile(profiler, opts["profile_dir"])
 
     best_path = None
-    if best_it is not None:
+    if best_it is not None and _rank0():
         src = os.path.join(save_dir, "ckpt_phys_%04d.pth" % best_it)
         best_path = os.path.join(save_dir, "ckpt_phys_best.pth")
         if os.path.exists(src):
@@ -205,6 +243,21 @@ def _stop_profile(prof, profile_dir):
 
 def main(argv=None):
     opts = parse_args(argv)
+    from .parallel import sharding
+
+    _, world, dev = sharding.init_distributed(
+        opts["device"], init_method=opts["dist_url"] or None, local_rank=opts["local_rank"])
+    opts["device"] = str(dev)
+    try:
+        _main(opts)
+    finally:
+        if world > 1:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(opts):
     n_seeds = max(1, int(opts["num_seeds"]))
     if n_seeds == 1:
         train_one(opts)

@@ -146,4 +146,10 @@ class IntrinsicsField:
         self.init_params = {"ks": torch.tensor([[fx, fx, 0.0, 0.0]]).repeat(n, 1)}
 
     def get_vals(self, params, frame_id):
-        return params["ks"][frame_id.to(torch.long)]
+        """Intrinsics of each frame; an index past either end takes the
+        nearest frame's, as JAX's gather clamps (a negative index counts
+        from the end first, as in jnp indexing)."""
+        ks = params["ks"]
+        i = frame_id.to(torch.long)
+        i = torch.where(i < 0, i + ks.shape[0], i).clamp(0, ks.shape[0] - 1)
+        return ks[i]

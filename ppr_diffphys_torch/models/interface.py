@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import compose_delta, matrix_to_quat, quat_to_matrix, se3_mat2vec
 from ..sim.kinematics import eval_fk
-from .losses import reduce_loss, se3_loss
+from .losses import se3_loss
 from .mlp import (
     cameramlp_params_from_jax,
     jax_param_path,
@@ -414,13 +414,12 @@ class phys_interface(phys_model):
         body_q, _ = eval_fk(self.env, torch.cat([droot, dja], -1))
         return body_q
 
-    def _distill_loss(self, params, steps_fr, sim_position, outseq):
+    def _distill_rows(self, params, steps_fr, sim_position, outseq):
         if float(self.opts.get("pos_distill_wt", 0.0)) <= 0.0:
-            return super()._distill_loss(params, steps_fr, sim_position, outseq)
+            return super()._distill_rows(params, steps_fr, sim_position, outseq)
         body_q = self._distilled_body_q(params, steps_fr[:, self.frame2step])
         loss = se3_loss(body_q, sim_position.detach()).mean(-1)
-        loss = torch.where(outseq, torch.zeros_like(loss), loss)
-        return reduce_loss(loss)
+        return torch.where(outseq, torch.zeros_like(loss), loss)
 
     @torch.no_grad()
     def get_distilled_kinematics(self, steps_fr):

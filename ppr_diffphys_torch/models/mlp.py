@@ -8,7 +8,8 @@
   (``time_embedding.mapping1.*``, ``time_embedding.inst_embedding.mapping.weight``,
   ``linear_<i>.0.*``, ``linear_final.0.*``, ``head.0.*``), so the keys
   written by ``ppr_diffphys_tpu.models.torch_adapter.timemlp_state_to_torch``
-  load directly;
+  load directly; inside ``parallel.sharding.tp_scope`` the embedding and
+  trunk layers split their output features over tp;
 - ``CameraMLP``: the same embedding and trunk with SE(3)-valued heads
   (``trans``, ``quat``) and per-video base quaternions (``CameraMLPFlax``),
   and ``fit_camera_mlp``, its Adam fit to per-frame SE(3) priors;
@@ -30,6 +31,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.sharding import tp_linear
 
 
 def posenc(x: torch.Tensor, n_freqs: int, alpha: Optional[float] = None) -> torch.Tensor:
@@ -104,6 +107,12 @@ def _init_linear(lin: nn.Linear, gen: torch.Generator):
         lin.bias.zero_()
 
 
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin(x)``, its output features split over tp inside
+    ``parallel.sharding.tp_scope`` (the trunk and time-embedding layers)."""
+    return tp_linear(x, lin.weight, lin.bias)
+
+
 class _InstEmbedding(nn.Module):
     def __init__(self, num_inst: int, dim: int):
         super().__init__()
@@ -123,10 +132,10 @@ class TimeEmbedding(nn.Module):
         self.mapping2 = nn.Linear(2 * out_channels, out_channels)
 
     def forward(self, t_sample: torch.Tensor, inst_id: torch.Tensor) -> torch.Tensor:
-        coeff = self.mapping1(posenc(t_sample[..., None], self.num_freq_t))
+        coeff = _linear(self.mapping1, posenc(t_sample[..., None], self.num_freq_t))
         ids = torch.zeros_like(inst_id) if self.num_inst == 1 else inst_id
         inst_code = self.inst_embedding.mapping(ids)
-        return self.mapping2(torch.cat([coeff, inst_code], dim=-1))
+        return _linear(self.mapping2, torch.cat([coeff, inst_code], dim=-1))
 
 
 class _TimeTrunk(nn.Module):
@@ -161,8 +170,8 @@ class _TimeTrunk(nn.Module):
         for i in range(self.D):
             if i in self.skips:
                 out = torch.cat([x, out], dim=-1)
-            out = torch.relu(getattr(self, "linear_%d" % (i + 1))(out))
-        return torch.relu(self.linear_final(out))
+            out = torch.relu(_linear(getattr(self, "linear_%d" % (i + 1))[0], out))
+        return torch.relu(_linear(self.linear_final[0], out))
 
 
 class TimeMLP(_TimeTrunk):

@@ -1,6 +1,6 @@
 """phys_model (PyTorch), counterpart of
 ``ppr_diffphys_tpu/models/phys_model.py``: the differentiable-physics
-optimization model, single device.
+optimization model.
 
 Serving: the robot template table, URDF import and mass surgery, the
 parameters (``global_q``, ``target_ke/kd``, ``body_mass``) and the five
@@ -23,9 +23,19 @@ through the same hooks as the JAX package: ``preset_data``/``_finish_data``,
 FK, the initial state and the rollout honour; the rollout takes them as the
 interval kernels' ``with_xp`` planes, and the eval forward then chains the
 no-gradient interval instead of the window, which has no anchor planes),
-``_distill_loss``, ``_extend_aux`` and ``get_camera``.
+``_distill_rows``, ``_extend_aux`` and ``get_camera``.
 
-Not here: multi-device placement, orbax.
+Multi-GPU (``parallel/sharding.py``): ``opts["ngpu"]`` budgets the ranks
+of the ``torch.distributed`` world (-1 or 0: all) and ``opts["mesh_shape"]``
+({"dp": .., "tp": ..} or "dp=4,tp=2") shapes the mesh, which ``_mesh_for``
+picks per env count as the JAX package does. In training each rank rolls
+out its slice of the envs; the per-env loss rows are gathered so that every
+rank reduces the same rows, and the gradients are summed over the ranks
+before the norms, the median queue and AdamW, which then run identically
+on every rank. The eval (1 env) runs whole on every rank. Host decisions
+that change the model read rank 0's values, and only rank 0 writes files.
+
+Not here: orbax.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 from torch import nn
 
 from .. import default_device
+from ..parallel import sharding
 from ..data.amp_loader import parse_amp, preprocess_sequence
 from ..data.robot import URDFRobot
 from ..ops import (
@@ -228,6 +239,14 @@ class phys_model:
             "body_mass": self._t(self.env.body_mass),
         }
         self.add_nn_modules()
+
+        # ---- the mesh: ngpu budgets the world's ranks (-1/0 = all), and
+        # mesh_shape {"dp":..,"tp":..} or "dp=4,tp=2" shapes it (JAX
+        # phys_model.py:229-246)
+        self._budget, self._tp, self._dp_cap = sharding.mesh_budget(
+            opts.get("ngpu", -1), opts.get("mesh_shape"), sharding.world_size())
+        self._mesh_cache = {}
+
         self.init_global_q()
         self.add_optimizer(opts)
 
@@ -508,9 +527,15 @@ class phys_model:
                 self.integrator, self.dt, self.steps_per_fr_interval, n_frames)
         return self._kernels[key]
 
-    def _forward_pure(self, params, frame_start, progress, weights, is_train):
+    def _forward_pure(self, params, frame_start, progress, weights, is_train, shard=None):
         """The whole forward: mocap targets, MLP queries, FK, the rollout
-        and the losses (JAX phys_model._forward_pure)."""
+        and the losses (JAX phys_model._forward_pure). ``frame_start`` holds
+        every env; with ``shard`` (``sharding.env_sharding``) this rank runs
+        its slice and the losses reduce the per-env rows of every slice."""
+        shard = shard or sharding.env_sharding(None)
+        E_all = frame_start.shape[0]
+        envs = shard.rows(E_all)
+        frame_start = frame_start[envs]
         E = frame_start.shape[0]
         S = len(self.steps_idx)
         sub = self.steps_per_fr_interval
@@ -542,7 +567,8 @@ class phys_model:
         q_init = torch.cat([batch["queried_q"][:, 0], batch["queried_ja"][:, 0]], -1)
         if is_train and self.noise_std > 0:
             noise_ratio = float(np.clip(1.0 - 1.5 * progress, 0.0, 1.0))
-            noise = torch.randn(q_init.shape, generator=self.generator).to(dev)
+            # drawn for every env, so the generator stays in step on every rank
+            noise = torch.randn((E_all, q_init.shape[1]), generator=self.generator)[envs].to(dev)
             noise = noise * self.noise_std * noise_ratio
             noise[:, :3] = 0.0
             noise[:, 3:7] *= 5.0
@@ -585,20 +611,36 @@ class phys_model:
 
         foot_height = self.get_foot_height(queried_position)
 
-        # ---- losses (reference dp_model.py:775-838)
+        # ---- losses (reference dp_model.py:775-838): the per-env rows of
+        # every env (every dp slice's, gathered in order), then reduced
         zero = torch.zeros((), dtype=torch.float32, device=dev)
+        rows = {
+            "traj": se3_loss(sim_position, target_position).mean(-1),
+            "pos_state": se3_loss(queried_position, sim_position.detach()).mean(-1),
+            "vel_state": se3_loss(queried_velocity, sim_velocity.detach()).mean(-1),
+        }
+        rows = {k: torch.where(outseq, zero, v) for k, v in rows.items()}
+        distill = self._distill_rows(params, steps_fr, sim_position, outseq)
+        if distill is not None:
+            rows["pos_distill"] = distill
+        rows["foot"] = foot_height.reshape(E, -1)
+        # the regularizers' per-env sums of squares (their rows span every
+        # substep, too many to gather)
+        sq = {k: batch[k] ** 2 for k in ("torques", "res_f")}
+        for k, v in sq.items():
+            rows[k] = v.reshape(E, -1).sum(1, keepdim=True)
+        width = {k: v.shape[1] for k, v in rows.items()}
+        rows = dict(zip(width, torch.split(shard.gather(torch.cat(list(rows.values()), 1)),
+                                           list(width.values()), 1)))
         loss_dict = {}
-        loss_traj = se3_loss(sim_position, target_position).mean(-1)
-        loss_traj = torch.where(outseq, zero, loss_traj)
-        loss_dict["traj"] = reduce_loss(loss_traj, clip=True, env0_th=quirks)
-        loss_pos = se3_loss(queried_position, sim_position.detach()).mean(-1)
-        loss_dict["pos_state"] = reduce_loss(torch.where(outseq, zero, loss_pos))
-        loss_vel = se3_loss(queried_velocity, sim_velocity.detach()).mean(-1)
-        loss_dict["vel_state"] = reduce_loss(torch.where(outseq, zero, loss_vel))
-        loss_dict["pos_distill"] = self._distill_loss(params, steps_fr, sim_position, outseq)
-        loss_dict["reg_torque"] = torch.mean(batch["torques"] ** 2)
-        loss_dict["reg_res_f"] = torch.mean(batch["res_f"] ** 2)
-        loss_dict["reg_foot"] = torch.mean(foot_height ** 2)
+        loss_dict["traj"] = reduce_loss(rows["traj"], clip=True, env0_th=quirks)
+        loss_dict["pos_state"] = reduce_loss(rows["pos_state"])
+        loss_dict["vel_state"] = reduce_loss(rows["vel_state"])
+        loss_dict["pos_distill"] = reduce_loss(rows["pos_distill"]) if distill is not None \
+            else zero
+        loss_dict["reg_torque"] = rows["torques"].sum() / (E_all * sq["torques"][0].numel())
+        loss_dict["reg_res_f"] = rows["res_f"].sum() / (E_all * sq["res_f"][0].numel())
+        loss_dict["reg_foot"] = torch.mean(rows["foot"] ** 2)
 
         total = zero
         for i, k in enumerate(LOSS_KEYS):
@@ -620,10 +662,11 @@ class phys_model:
         trajectories)."""
         return aux
 
-    def _distill_loss(self, params, steps_fr, sim_position, outseq):
-        """pos_distill (reference dp_model.py:800-804): zero in mocap mode,
-        the lab4d interface's distillation otherwise."""
-        return torch.zeros((), dtype=torch.float32, device=self.device)
+    def _distill_rows(self, params, steps_fr, sim_position, outseq):
+        """pos_distill's per-env rows (E, F) (reference dp_model.py:800-804):
+        None in mocap mode (the loss is zero), the lab4d interface's
+        distillation otherwise."""
+        return None
 
     # ------------------------------------------------------------------
     # host-side train loop API (reference method surface)
@@ -644,12 +687,29 @@ class phys_model:
         return [float(self.opts.get(k + "_wt", 0.0)) for k in LOSS_KEYS]
 
     def compute_frame_start(self):
+        """Window starts of every env (on every rank the same draw)."""
         u = torch.rand((self.num_envs,), generator=self.generator)
         return torch.round(u * (self.total_frames - self.frames_per_wdw)).to(self.device)
 
+    def _mesh_for(self, num_envs):
+        """The mesh for an env count, or None for the unsharded path: dp the
+        largest divisor of num_envs within the rank budget // tp, tp from
+        opts["mesh_shape"] when it divides the budget (JAX
+        phys_model._mesh_for). Cached per (dp, tp)."""
+        dims = sharding.mesh_dims(num_envs, self._budget, self._tp, self._dp_cap)
+        if dims is None:
+            return None
+        if dims not in self._mesh_cache:
+            dp, tp = dims
+            shape = {"dp": dp, "tp": tp} if tp > 1 else {"dp": dp}
+            self._mesh_cache[dims] = sharding.make_mesh(shape, list(range(self._budget)))
+        return self._mesh_cache[dims]
+
     def forward(self, frame_start=None):
         """One forward; in train mode also computes and accumulates the
-        gradients (``backward`` is a no-op, as in the JAX package)."""
+        gradients (``backward`` is a no-op, as in the JAX package). On a
+        mesh (``_mesh_for(num_envs)``) the train step runs this rank's env
+        slice and accumulates the gradients summed over the ranks."""
         if frame_start is None:
             frame_start = self.compute_frame_start()
         else:
@@ -666,16 +726,22 @@ class phys_model:
         named = self.named_tensors()
         tensors = [t for _, t in named]
         leaves = [t for t in tensors if not isinstance(t, nn.Parameter)]
+
+        def grad_step(shard):
+            out, _ = self._forward_pure(self.params, frame_start, self.progress, w, True,
+                                        shard=shard)
+            grads = torch.autograd.grad(out["total_loss"], tensors, allow_unused=True)
+            return out, [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
+
         for t in leaves:
             t.requires_grad_(True)
         try:
-            out, _ = self._forward_pure(self.params, frame_start, self.progress, w, True)
-            grads = torch.autograd.grad(out["total_loss"], tensors, allow_unused=True)
+            out, grads = sharding.shard_train_step(
+                grad_step, self._mesh_for(self.num_envs), named)()
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        self.last_grads = {n: torch.zeros_like(t) if g is None else g
-                           for (n, t), g in zip(named, grads)}
+        self.last_grads = {n: g for (n, _), g in zip(named, grads)}
         grads = [self.last_grads[n] for n, _ in self._trainable]
         # per-tensor norms over trainable tensors: the reference's grad queue
         # keys are per named parameter (dp_model.py:969-975)
@@ -700,7 +766,8 @@ class phys_model:
         only)."""
         if self.env.contact_mode != "hull":
             return
-        viol = self.env.validate_hull_contacts(body_q)
+        # rank 0's reading decides on every rank
+        viol, = sharding.broadcast_from_rank0([self.env.validate_hull_contacts(body_q)])
         margin = float(self.opts.get("hull_fallback_margin", 3e-3))
         if viol <= margin:
             return
@@ -812,8 +879,10 @@ class phys_model:
             grads = [sum(gs) / n for gs in zip(*(a[0] for a in self._grad_accum))]
             norms_dev = sum(a[1] for a in self._grad_accum) / n
             gnorm_dev = sum(a[2] for a in self._grad_accum) / n
-        # one host transfer for all grad statistics
-        stats = torch.cat([gnorm_dev[None], norms_dev]).cpu().tolist()
+        # one host transfer for all grad statistics; rank 0's decide the
+        # rollback and the median queue on every rank
+        stats = sharding.broadcast_from_rank0(
+            torch.cat([gnorm_dev[None], norms_dev]).cpu().tolist())
         gnorm = float(stats[0])
         norms = {name: float(v) for (name, _), v in zip(self._trainable, stats[1:])}
         self._grad_accum = []
@@ -920,6 +989,8 @@ class phys_model:
         self.optimizer_cache[0] = self.optimizer_cache[1]
         self.model_cache[1] = self.state_np()
         self.optimizer_cache[1] = (copy.deepcopy(self.optimizer.state_dict()), self._sched_step)
+        if sharding.rank() != 0:
+            return  # every rank keeps the rollback caches; rank 0 writes
         os.makedirs(self.save_dir, exist_ok=True)
         save_dict = self.model_cache[1]
         for name in ("ckpt_phys_%04d.pth" % steps_count, "ckpt_phys_latest.pth"):

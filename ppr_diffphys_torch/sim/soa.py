@@ -295,12 +295,21 @@ def check_bodies(name: str, B: int, max_b: int):
         raise ValueError("%s supports at most %d bodies, got %d" % (name, max_b, B))
 
 
+def check_device(name: str, dev: torch.device):
+    """A kernel launches on the current CUDA device (one process per card):
+    tensors on another card raise."""
+    if dev.type == "cuda" and dev.index != torch.cuda.current_device():
+        raise ValueError("%s got tensors on %s but the current device is cuda:%d"
+                         % (name, dev, torch.cuda.current_device()))
+
+
 def check_inputs(name: str, model, state: SimState, joint_targets, joint_acts, S: int,
                  planes):
-    """Checks a launch's inputs: float32 on the state's device, state
-    (E,B,7)/(E,B,6), targets and acts (S,E,n_qd), parameter planes of lane
-    1 or E."""
+    """Checks a launch's inputs: float32 on the state's device, which is the
+    current CUDA device, state (E,B,7)/(E,B,6), targets and acts
+    (S,E,n_qd), parameter planes of lane 1 or E."""
     dev = state.body_q.device
+    check_device(name, dev)
     E, B, n_qd = state.body_q.shape[0], model.n_links, model.n_qd
     tensors = [state.body_q, state.body_qd, joint_targets] + list(planes)
     if joint_acts is not None:

@@ -34,8 +34,8 @@ import torch
 
 from ..csrc import build as kbuild
 from .integrator import SemiImplicitIntegrator, SimParams, SimState, interval
-from .soa import (TRACED_NAMES, XP_NAMES, PackedConsts, envs_per_cta, ptr, sim_args,
-                  traced_planes, window_work)
+from .soa import (TRACED_NAMES, XP_NAMES, PackedConsts, check_device, envs_per_cta, ptr,
+                  sim_args, traced_planes, window_work)
 
 KERNEL = "soa_interval"
 KERNEL_FWD, KERNEL_BWD, KERNEL_REDUCE = (
@@ -143,6 +143,7 @@ class DiffInterval:
         model = self.model
         B, n_qd, S = model.n_links, model.n_qd, self.S
         dev = tgt.device
+        check_device(KERNEL, dev)
         want = {"tgt": (tgt, (S, n_qd, E)), "act": (act, (S, n_qd, E)),
                 "res": (res, (S, 6, B, E))}
         out = {}

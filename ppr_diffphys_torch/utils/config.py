@@ -22,7 +22,7 @@ import numpy as np
 DEFAULT_OPTS = dict(
     # distributed (vestigial in the reference; here they select the mesh)
     local_rank=0,
-    ngpu=-1,  # -1 = all visible devices; envs dp-shard over the mesh
+    ngpu=-1,  # -1 = every rank of the world; envs dp-shard over the mesh
     accu_steps=1,
     seqname="mi-pace",
     logroot="logdir/",

@@ -1,11 +1,11 @@
 """The port's API surface against the JAX package's, read through
 ``inspect``: every public method of ``phys_model``, ``phys_interface``,
 ``KinematicsProxy`` and ``RolloutServer``, every public module-level
-function and class of ``ops/``, ``utils/``, ``models/mlp.py`` and
-``models/torch_adapter.py`` (with the public methods of those classes), and
-every flag of the training CLI exists in the port and takes no more
-required positional arguments there. What is left out on purpose stands in
-``EXCEPTIONS`` with its reason.
+function and class of ``ops/``, ``utils/``, ``models/mlp.py``,
+``models/torch_adapter.py`` and ``parallel/sharding.py`` (with the public
+methods of those classes), and every flag of the training CLI exists in the
+port and takes no more required positional arguments there. What is left
+out on purpose stands in ``EXCEPTIONS`` with its reason.
 """
 
 import importlib
@@ -30,14 +30,11 @@ EXCEPTIONS = {
     "models.mlp.TimeMLPFlax": "a flax module class (the port's TimeMLP)",
     "models.mlp.CameraMLPFlax": "a flax module class (the port's CameraMLP)",
     "flag.ckpt_backend": "orbax is a JAX library; the port's checkpoints are pickles",
-    "flag.mesh_shape": "multi-GPU is not ported yet (parallel/sharding.py comes last)",
-    "flag.ngpu": "the same",
     "flag.phys_engine": "the TPU engine pick",
     "flag.eval_engine": "the TPU eval engine pick",
     "flag.soa_e_tile": "the Pallas env tile (a TPU VMEM plan)",
     "flag.soa_ksub": "the Pallas substeps per call (a TPU VMEM plan)",
     "flag.rollout_unroll": "the XLA scan unroll factor",
-    "parallel": "multi-GPU (parallel/sharding.py) is not ported yet",
 }
 
 CLASSES = [("models.phys_model", "phys_model"), ("models.interface", "phys_interface"),
@@ -84,14 +81,14 @@ def _modules():
     for sub in ("ops", "utils"):
         pkg = _jax(sub)
         names += ["%s.%s" % (sub, m.name) for m in pkgutil.iter_modules(pkg.__path__)]
-    return sorted(names + ["models.mlp", "models.torch_adapter"])
+    return sorted(names + ["models.mlp", "models.torch_adapter", "parallel.sharding"])
 
 
 def test_unported_package_is_absent():
-    """``parallel`` is the one JAX package the port leaves out (EXCEPTIONS);
-    once it lands this fails, and its modules join the checks below."""
+    """No JAX package is left unported: ``parallel``, the last, exists in
+    both, and its module joins the checks below."""
     assert importlib.util.find_spec("ppr_diffphys_tpu.parallel") is not None
-    assert importlib.util.find_spec("ppr_diffphys_torch.parallel") is None
+    assert importlib.util.find_spec("ppr_diffphys_torch.parallel") is not None
 
 
 @pytest.mark.parametrize("module", _modules())

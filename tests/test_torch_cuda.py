@@ -529,3 +529,57 @@ def test_interval_forward_export_matches_plain(case):
         torch.testing.assert_close(x, y, rtol=0, atol=tol)
     q2, qd2, none = di._forward(bq, bqd, tp, ap, res, pl, False)
     assert none is None and torch.equal(q2, q) and torch.equal(qd2, qd)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_another_cards_tensors():
+    """One process per card: every kernel wrapper raises when its tensors
+    lie on another card than the current device, before it launches."""
+    _need_gpu()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices: with one card no tensor can lie on another")
+    model = _model("a1")
+    other = torch.device("cuda", 1)
+    state, tgt, act, params = _inputs(model, 8, 2, False, other)
+    integ = tint.SemiImplicitIntegrator(model)
+    torch.cuda.set_device(0)
+    window = soa.SoaWindow(integ, DT, SUB, 2)
+    with pytest.raises(ValueError, match="current device"):
+        window(state, tgt, None, params)
+    roll = soa.SoaRollout(integ, params, DT, SUB)
+    with pytest.raises(ValueError, match="current device"):
+        roll(state, tgt[:SUB], None)
+    di = soa_grad.DiffInterval(integ, DT, SUB)
+    bq, bqd = (x.permute(2, 1, 0).contiguous() for x in state)
+    _, planes = _planes(model, params)
+    with pytest.raises(ValueError, match="current device"):
+        di(bq, bqd, tgt[:SUB].permute(0, 2, 1).contiguous(), None, None, *planes)
+    assert window.launches == 0 and roll.launches == 0
+    assert not any(di.launches.values())
+
+
+@pytest.mark.cuda
+def test_comm_helpers_under_nccl(tmp_path):
+    """gather_envs (values and its slice-only backward), sum_grads and
+    replicas_agree on CUDA tensors under a world-1 NCCL group."""
+    _need_gpu()
+    import torch.distributed as dist
+    from ppr_diffphys_torch.parallel import sharding
+
+    dist.init_process_group("nccl", init_method="file://" + str(tmp_path / "store"),
+                            rank=0, world_size=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = sharding.make_mesh({"dp": 1})
+        x = torch.randn(4, 3, device="cuda", requires_grad=True)
+        full = sharding.gather_envs(x, mesh)
+        (g,) = torch.autograd.grad((full * 2.0).sum(), x)
+        assert torch.equal(full, x) and torch.equal(g, torch.full_like(x, 2.0))
+        grads = [torch.randn(5, 2, device="cuda"), torch.randn(3, device="cuda")]
+        out = sharding.sum_grads(mesh, grads, [None, None])
+        assert all(torch.equal(a, b) for a, b in zip(out, grads))
+        assert sharding.replicas_agree(grads)
+        assert sharding.broadcast_from_rank0([1.5, -2.0]) == [1.5, -2.0]
+    finally:
+        dist.destroy_process_group()
+        sharding._mesh_cache.clear()

@@ -219,6 +219,26 @@ def test_eval_forward_camera_and_query(models):
     np.testing.assert_allclose(dt_.numpy(), np.asarray(dj), atol=1e-5, rtol=0)
 
 
+def test_eval_window_past_the_last_frame_matches_jax(models):
+    """The whole-sequence eval (1 env) from the second video's start runs its
+    window past the last frame; the frame gathers there take the nearest
+    frame, as JAX's clamp, and the outputs equal the JAX package's within
+    the eval tolerances above."""
+    jm, tm = models
+    start = np.array([OFFSETS[1]], np.float32)
+    for m in (jm, tm):
+        m.reinit_envs(1, frames_per_wdw=int(OFFSETS[-1]), is_eval=True)
+    jout = jm.forward(frame_start=start)
+    tout = tm.forward(frame_start=start)
+    assert set(jout) == set(tout)
+    for k in jout:
+        np.testing.assert_allclose(float(tout[k]), float(jout[k]), rtol=1e-4, atol=1e-9,
+                                   err_msg=k)
+    np.testing.assert_allclose(tm.sim_trajs, jm.sim_trajs, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tm.get_camera(), jm.get_camera(), atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(tm.distilled_trajs, jm.distilled_trajs, atol=1e-5, rtol=0)
+
+
 def test_query_renders_with_its_cameras(models, tmp_path, monkeypatch):
     """The lab4d eval's query(img_size), rendered by the port's
     PhysVisualizer with its cameras, gives the frames and OBJ strips the JAX

@@ -129,9 +129,9 @@ print(" ".join(mods))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = out.stdout.split()
-    assert len(mods) >= 39
+    assert len(mods) >= 41
     for m in ("sim.soa_grad", "models.losses", "models.phys_model", "main", "bench",
               "utils.h100", "models.fields", "models.interface", "utils.autodiff",
               "utils.vis", "utils.render", "utils.io", "utils.projection", "utils.colors",
-              "models.torch_adapter", "render_intermediate"):
+              "models.torch_adapter", "render_intermediate", "parallel.sharding"):
         assert "ppr_diffphys_torch." + m in mods, m
