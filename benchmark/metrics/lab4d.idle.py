@@ -1,0 +1,8 @@
+"""Percent of the traced steps' window in which no operation ran on the
+device."""
+
+from benchmark.readers import idle
+
+
+def read(ctx):
+    return idle(ctx)
