@@ -10,12 +10,14 @@ train iterations on windowed envs with gradient accumulation and grad
 safety. The eval score and every iteration's loss dict are written to
 tensorboard in the run's directory and printed as JSON lines on stdout;
 ``--profile_dir`` traces iterations 2-4 with ``torch.profiler`` into a
-Chrome trace there. Flags carry ``main.py``'s names and defaults, plus
-``--device`` (default cuda; ``--device cpu`` runs the plain PyTorch versions
-of the kernels) and ``--dist_url``. Left out: the TPU engine and tiling flags
-(``phys_engine``, ``eval_engine``, ``soa_e_tile``, ``soa_ksub``,
-``rollout_unroll``); ``ckpt_backend`` (orbax is a JAX library; checkpoints
-are pickles).
+Chrome trace there (``trace.json``, where the program's spans are ranges
+over their kernels) and writes the spans' and counters' summary beside it
+(``spans.json``, ``utils/spans.py``). Flags carry ``main.py``'s names and
+defaults, plus ``--device`` (default cuda; ``--device cpu`` runs the plain
+PyTorch versions of the kernels) and ``--dist_url``. Left out: the TPU
+engine and tiling flags (``phys_engine``, ``eval_engine``, ``soa_e_tile``,
+``soa_ksub``, ``rollout_unroll``); ``ckpt_backend`` (orbax is a JAX library;
+checkpoints are pickles).
 
 Multi-GPU, one process per card (``parallel/sharding.py``):
 
@@ -169,13 +171,13 @@ def _train(opts, save_dir, vis):
             vis.write_log({"eval/traj": eval_score}, it)
             if opts["eval_selection"] and (best_score is None or eval_score < best_score):
                 best_score, best_it = eval_score, it
-            t = time.time()
+            t = time.perf_counter()
             if _rank0():
                 data = model.query()
                 data["model"] = model.env
                 vis.show(it, data, fps=1.0 / model.frame_interval,
                          render_video=opts["render_vis"])
-            log({"it": it, "eval/traj": eval_score, "vis_time": time.time() - t})
+            log({"it": it, "eval/traj": eval_score, "vis_time": time.perf_counter() - t})
             if opts["wdw_schedule"]:
                 fpw = int(0.5 * (model.total_frames - 1) / model.total_iters * it + 1)
                 fpw = max(2, min(fpw, model.total_frames))
@@ -193,7 +195,7 @@ def _train(opts, save_dir, vis):
                 _stop_profile(profiler, opts["profile_dir"])
                 profiler = None
 
-        t = time.time()
+        t = time.perf_counter()
         accu = []
         for _ in range(opts["accu_steps"]):
             loss_dict = model.forward()
@@ -203,7 +205,7 @@ def _train(opts, save_dir, vis):
         record = {k: float(v) for k, v in loss_dict.items()}
         record["loss"] = float(sum(float(a) for a in accu)) / float(opts["accu_steps"])
         record.update(grad_dict)
-        record["iter_time"] = time.time() - t
+        record["iter_time"] = time.perf_counter() - t
         vis.write_log(record, it)
         record["it"] = it
         log(record)
@@ -224,6 +226,9 @@ def _train(opts, save_dir, vis):
 def _start_profile(device):
     import torch
 
+    from .utils import spans
+
+    spans.reset()
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -233,12 +238,20 @@ def _start_profile(device):
 
 
 def _stop_profile(prof, profile_dir):
-    """End the trace and write it as a Chrome trace, profile_dir/trace.json."""
+    """End the trace and write it as a Chrome trace, profile_dir/trace.json,
+    and the summary of the program's spans and counters over the same
+    iterations, profile_dir/spans.json."""
+    from .utils import spans
+
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
     print("profiler trace of iterations 2-4: %s" % path)
+    path = os.path.join(profile_dir, "spans.json")
+    with open(path, "w") as f:
+        json.dump(spans.summary(), f, indent=1, sort_keys=True)
+    print("spans and counters of iterations 2-4: %s" % path)
 
 
 def main(argv=None):

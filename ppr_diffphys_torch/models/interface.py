@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import compose_delta, matrix_to_quat, quat_to_matrix, se3_mat2vec
 from ..sim.kinematics import eval_fk
+from ..utils import spans
 from .losses import se3_loss
 from .mlp import (
     cameramlp_params_from_jax,
@@ -417,9 +418,10 @@ class phys_interface(phys_model):
     def _distill_rows(self, params, steps_fr, sim_position, outseq):
         if float(self.opts.get("pos_distill_wt", 0.0)) <= 0.0:
             return super()._distill_rows(params, steps_fr, sim_position, outseq)
-        body_q = self._distilled_body_q(params, steps_fr[:, self.frame2step])
-        loss = se3_loss(body_q, sim_position.detach()).mean(-1)
-        return torch.where(outseq, torch.zeros_like(loss), loss)
+        with spans.span("losses.distill"):
+            body_q = self._distilled_body_q(params, steps_fr[:, self.frame2step])
+            loss = se3_loss(body_q, sim_position.detach()).mean(-1)
+            return torch.where(outseq, torch.zeros_like(loss), loss)
 
     @torch.no_grad()
     def get_distilled_kinematics(self, steps_fr):

@@ -65,6 +65,7 @@ from ..sim.integrator import SemiImplicitIntegrator, SimParams, SimState
 from ..sim.kinematics import eval_fk
 from ..sim.soa import SoaWindow
 from ..sim.soa_grad import make_diff_interval, rollout_soa
+from ..utils import spans
 from ..utils.config import DEFAULT_OPTS, interp_wt, match_param_name
 from .losses import compute_com, reduce_loss, se3_loss
 from .mlp import (
@@ -549,17 +550,19 @@ class phys_model:
         vidid = self.samplers["joint_angle_mlp"].frame_to_vid(steps_fr[:, f2s])
         outseq = (vidid[:, :1] - vidid) != 0
 
-        batch = self.get_batch_input(params, steps_fr)
+        with spans.span("forward.inputs"):
+            batch = self.get_batch_input(params, steps_fr)
         # the lab4d interface's per-env joint anchors (E, B, 7), or None
         xp = batch.get("joint_X_p")
         stk = lambda a, b: torch.stack([a[:, f2s], b[:, f2s]], 0)
-        both_position, both_velocity = self.fk_pos_vel(
-            stk(batch["target_q"], batch["queried_q"]),
-            stk(batch["target_ja"], batch["queried_ja"]),
-            stk(batch["target_qd"], batch["queried_qd"][..., :6]),
-            stk(batch["target_jad"], batch["queried_qd"][..., 6:]),
-            joint_X_p=None if xp is None else xp[None, :, None],  # over (2, E, F)
-        )
+        with spans.span("forward.fk"):
+            both_position, both_velocity = self.fk_pos_vel(
+                stk(batch["target_q"], batch["queried_q"]),
+                stk(batch["target_ja"], batch["queried_ja"]),
+                stk(batch["target_qd"], batch["queried_qd"][..., :6]),
+                stk(batch["target_jad"], batch["queried_qd"][..., 6:]),
+                joint_X_p=None if xp is None else xp[None, :, None],  # over (2, E, F)
+            )
         target_position, queried_position = both_position[0], both_position[1]
         queried_velocity = both_velocity[1]
 
@@ -574,77 +577,80 @@ class phys_model:
             noise[:, 3:7] *= 5.0
             q_init = q_init + noise
         qd_init = swap_lin_ang(batch["queried_qd"][:, 0])
-        body_q0, body_qd0 = eval_fk(self.env, q_init, qd_init, joint_X_p=xp)
+        with spans.span("forward.fk"):
+            body_q0, body_qd0 = eval_fk(self.env, q_init, qd_init, joint_X_p=xp)
         state0 = SimState(body_q0, body_qd0)
 
         # control reference at every substep: zeros(6) + queried joint
         # angles (reference rearrange_pred, dp_model.py:554-572)
-        zeros6 = torch.zeros((E, S, 6), dtype=torch.float32, device=dev)
-        ref_ja = torch.cat([zeros6, batch["queried_ja"]], -1).transpose(0, 1)
-        torques = torch.cat([zeros6, batch["torques"]], -1).transpose(0, 1)
-        res_f = swap_lin_ang(batch["res_f"]).transpose(0, 1)  # (S,E,B,6)
+        with spans.span("forward.rollout"):
+            zeros6 = torch.zeros((E, S, 6), dtype=torch.float32, device=dev)
+            ref_ja = torch.cat([zeros6, batch["queried_ja"]], -1).transpose(0, 1)
+            torques = torch.cat([zeros6, batch["torques"]], -1).transpose(0, 1)
+            res_f = swap_lin_ang(batch["res_f"]).transpose(0, 1)  # (S,E,B,6)
 
-        sp = self._sim_params(params, joint_X_p=xp)
-        quirks = bool(self.opts.get("ref_quirks", False))
-        if is_train:
-            # gradient scrubbing at the rollout boundary (reference
-            # remove_nan/clamp, dp_model.py:1294-1384)
-            scrub = scrub_grad_ref if quirks else scrub_grad
-            sim_q, sim_qd, grfs, jafs = rollout_soa(
-                self.integrator, sp, state0, scrub(ref_ja), scrub(torques),
-                scrub(res_f), self.dt, sub, interval_fn=self._interval(xp is not None),
-            )
-        elif xp is not None:
-            # live anchors: the window (K1) has no anchor planes, so the eval
-            # chains the with_xp interval without gradient (K2 alone on CUDA)
-            with torch.no_grad():
+            sp = self._sim_params(params, joint_X_p=xp)
+            quirks = bool(self.opts.get("ref_quirks", False))
+            if is_train:
+                # gradient scrubbing at the rollout boundary (reference
+                # remove_nan/clamp, dp_model.py:1294-1384)
+                scrub = scrub_grad_ref if quirks else scrub_grad
                 sim_q, sim_qd, grfs, jafs = rollout_soa(
-                    self.integrator, sp, state0, ref_ja, None, None, self.dt, sub,
-                    interval_fn=self._interval(True))
-        else:
-            # torques and residual forces are structurally zero: the window
-            # takes acts as None and has no residual input
-            sim_q, sim_qd, grfs, jafs = self._window(self.frames_per_wdw)(
-                state0, ref_ja, None, sp)
-        sim_position = sim_q.transpose(0, 1)  # (E, F, B, 7)
-        sim_velocity = swap_lin_ang(sim_qd.transpose(0, 1))
+                    self.integrator, sp, state0, scrub(ref_ja), scrub(torques),
+                    scrub(res_f), self.dt, sub, interval_fn=self._interval(xp is not None),
+                )
+            elif xp is not None:
+                # live anchors: the window (K1) has no anchor planes, so the eval
+                # chains the with_xp interval without gradient (K2 alone on CUDA)
+                with torch.no_grad():
+                    sim_q, sim_qd, grfs, jafs = rollout_soa(
+                        self.integrator, sp, state0, ref_ja, None, None, self.dt, sub,
+                        interval_fn=self._interval(True))
+            else:
+                # torques and residual forces are structurally zero: the window
+                # takes acts as None and has no residual input
+                sim_q, sim_qd, grfs, jafs = self._window(self.frames_per_wdw)(
+                    state0, ref_ja, None, sp)
+            sim_position = sim_q.transpose(0, 1)  # (E, F, B, 7)
+            sim_velocity = swap_lin_ang(sim_qd.transpose(0, 1))
 
-        foot_height = self.get_foot_height(queried_position)
+        with spans.span("forward.losses"):
+            foot_height = self.get_foot_height(queried_position)
 
-        # ---- losses (reference dp_model.py:775-838): the per-env rows of
-        # every env (every dp slice's, gathered in order), then reduced
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        rows = {
-            "traj": se3_loss(sim_position, target_position).mean(-1),
-            "pos_state": se3_loss(queried_position, sim_position.detach()).mean(-1),
-            "vel_state": se3_loss(queried_velocity, sim_velocity.detach()).mean(-1),
-        }
-        rows = {k: torch.where(outseq, zero, v) for k, v in rows.items()}
-        distill = self._distill_rows(params, steps_fr, sim_position, outseq)
-        if distill is not None:
-            rows["pos_distill"] = distill
-        rows["foot"] = foot_height.reshape(E, -1)
-        # the regularizers' per-env sums of squares (their rows span every
-        # substep, too many to gather)
-        sq = {k: batch[k] ** 2 for k in ("torques", "res_f")}
-        for k, v in sq.items():
-            rows[k] = v.reshape(E, -1).sum(1, keepdim=True)
-        width = {k: v.shape[1] for k, v in rows.items()}
-        rows = dict(zip(width, torch.split(shard.gather(torch.cat(list(rows.values()), 1)),
-                                           list(width.values()), 1)))
-        loss_dict = {}
-        loss_dict["traj"] = reduce_loss(rows["traj"], clip=True, env0_th=quirks)
-        loss_dict["pos_state"] = reduce_loss(rows["pos_state"])
-        loss_dict["vel_state"] = reduce_loss(rows["vel_state"])
-        loss_dict["pos_distill"] = reduce_loss(rows["pos_distill"]) if distill is not None \
-            else zero
-        loss_dict["reg_torque"] = rows["torques"].sum() / (E_all * sq["torques"][0].numel())
-        loss_dict["reg_res_f"] = rows["res_f"].sum() / (E_all * sq["res_f"][0].numel())
-        loss_dict["reg_foot"] = torch.mean(rows["foot"] ** 2)
+            # ---- losses (reference dp_model.py:775-838): the per-env rows of
+            # every env (every dp slice's, gathered in order), then reduced
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            rows = {
+                "traj": se3_loss(sim_position, target_position).mean(-1),
+                "pos_state": se3_loss(queried_position, sim_position.detach()).mean(-1),
+                "vel_state": se3_loss(queried_velocity, sim_velocity.detach()).mean(-1),
+            }
+            rows = {k: torch.where(outseq, zero, v) for k, v in rows.items()}
+            distill = self._distill_rows(params, steps_fr, sim_position, outseq)
+            if distill is not None:
+                rows["pos_distill"] = distill
+            rows["foot"] = foot_height.reshape(E, -1)
+            # the regularizers' per-env sums of squares (their rows span every
+            # substep, too many to gather)
+            sq = {k: batch[k] ** 2 for k in ("torques", "res_f")}
+            for k, v in sq.items():
+                rows[k] = v.reshape(E, -1).sum(1, keepdim=True)
+            width = {k: v.shape[1] for k, v in rows.items()}
+            rows = dict(zip(width, torch.split(shard.gather(torch.cat(list(rows.values()), 1)),
+                                               list(width.values()), 1)))
+            loss_dict = {}
+            loss_dict["traj"] = reduce_loss(rows["traj"], clip=True, env0_th=quirks)
+            loss_dict["pos_state"] = reduce_loss(rows["pos_state"])
+            loss_dict["vel_state"] = reduce_loss(rows["vel_state"])
+            loss_dict["pos_distill"] = reduce_loss(rows["pos_distill"]) if distill is not None \
+                else zero
+            loss_dict["reg_torque"] = rows["torques"].sum() / (E_all * sq["torques"][0].numel())
+            loss_dict["reg_res_f"] = rows["res_f"].sum() / (E_all * sq["res_f"][0].numel())
+            loss_dict["reg_foot"] = torch.mean(rows["foot"] ** 2)
 
-        total = zero
-        for i, k in enumerate(LOSS_KEYS):
-            total = total + loss_dict[k] * weights[i]
+            total = zero
+            for i, k in enumerate(LOSS_KEYS):
+                total = total + loss_dict[k] * weights[i]
         out = {"loss_" + k: v for k, v in loss_dict.items()}
         out["total_loss"] = total
         aux = dict(
@@ -710,45 +716,50 @@ class phys_model:
         gradients (``backward`` is a no-op, as in the JAX package). On a
         mesh (``_mesh_for(num_envs)``) the train step runs this rank's env
         slice and accumulates the gradients summed over the ranks."""
-        if frame_start is None:
-            frame_start = self.compute_frame_start()
-        else:
-            frame_start = torch.as_tensor(
-                np.asarray(frame_start, np.float32), device=self.device)[: self.num_envs]
-        w = self._weights_vec()
-        if self.is_eval:
-            with torch.no_grad():
-                out, aux = self._forward_pure(self.params, frame_start, self.progress, w, False)
-            self._store_eval_aux(aux)
-            return out
-        # every tensor's gradient, frozen ones too, as jax.grad gives them
-        # (``last_grads``); the update takes the trainable ones
-        named = self.named_tensors()
-        tensors = [t for _, t in named]
-        leaves = [t for t in tensors if not isinstance(t, nn.Parameter)]
+        with spans.span("phys_model.forward"):
+            if frame_start is None:
+                frame_start = self.compute_frame_start()
+            else:
+                frame_start = torch.as_tensor(
+                    np.asarray(frame_start, np.float32), device=self.device)[: self.num_envs]
+            w = self._weights_vec()
+            if self.is_eval:
+                with torch.no_grad():
+                    out, aux = self._forward_pure(self.params, frame_start, self.progress, w,
+                                                  False)
+                self._store_eval_aux(aux)
+                return out
+            # every tensor's gradient, frozen ones too, as jax.grad gives them
+            # (``last_grads``); the update takes the trainable ones
+            named = self.named_tensors()
+            tensors = [t for _, t in named]
+            leaves = [t for t in tensors if not isinstance(t, nn.Parameter)]
 
-        def grad_step(shard):
-            out, _ = self._forward_pure(self.params, frame_start, self.progress, w, True,
-                                        shard=shard)
-            grads = torch.autograd.grad(out["total_loss"], tensors, allow_unused=True)
-            return out, [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
+            def grad_step(shard):
+                out, _ = self._forward_pure(self.params, frame_start, self.progress, w, True,
+                                            shard=shard)
+                with spans.span("forward.backward"):
+                    grads = torch.autograd.grad(out["total_loss"], tensors, allow_unused=True)
+                return out, [torch.zeros_like(t) if g is None else g
+                             for t, g in zip(tensors, grads)]
 
-        for t in leaves:
-            t.requires_grad_(True)
-        try:
-            out, grads = sharding.shard_train_step(
-                grad_step, self._mesh_for(self.num_envs), named)()
-        finally:
             for t in leaves:
-                t.requires_grad_(False)
-        self.last_grads = {n: g for (n, _), g in zip(named, grads)}
-        grads = [self.last_grads[n] for n, _ in self._trainable]
-        # per-tensor norms over trainable tensors: the reference's grad queue
-        # keys are per named parameter (dp_model.py:969-975)
-        norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
-        gnorm = torch.sqrt(torch.sum(norms ** 2))
-        self._grad_accum.append((grads, norms, gnorm))
-        return {k: v.detach() for k, v in out.items()}
+                t.requires_grad_(True)
+            try:
+                out, grads = sharding.shard_train_step(
+                    grad_step, self._mesh_for(self.num_envs), named)()
+            finally:
+                for t in leaves:
+                    t.requires_grad_(False)
+            self.last_grads = {n: g for (n, _), g in zip(named, grads)}
+            grads = [self.last_grads[n] for n, _ in self._trainable]
+            # per-tensor norms over trainable tensors: the reference's grad
+            # queue keys are per named parameter (dp_model.py:969-975)
+            with spans.span("forward.grad_norms"):
+                norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+                gnorm = torch.sqrt(torch.sum(norms ** 2))
+            self._grad_accum.append((grads, norms, gnorm))
+            return {k: v.detach() for k, v in out.items()}
 
     def _store_eval_aux(self, aux):
         self.sim_trajs = aux["sim_traj"].cpu().numpy()
@@ -879,10 +890,12 @@ class phys_model:
             grads = [sum(gs) / n for gs in zip(*(a[0] for a in self._grad_accum))]
             norms_dev = sum(a[1] for a in self._grad_accum) / n
             gnorm_dev = sum(a[2] for a in self._grad_accum) / n
-        # one host transfer for all grad statistics; rank 0's decide the
-        # rollback and the median queue on every rank
-        stats = sharding.broadcast_from_rank0(
-            torch.cat([gnorm_dev[None], norms_dev]).cpu().tolist())
+        # one host transfer for all grad statistics (the host waits for the
+        # device here); rank 0's decide the rollback and the median queue on
+        # every rank
+        with spans.span("update.grad_read"):
+            stats = torch.cat([gnorm_dev[None], norms_dev]).cpu().tolist()
+        stats = sharding.broadcast_from_rank0(stats)
         gnorm = float(stats[0])
         norms = {name: float(v) for (name, _), v in zip(self._trainable, stats[1:])}
         self._grad_accum = []
@@ -897,20 +910,22 @@ class phys_model:
     def update(self):
         """Grad safety then the optimizer step (reference update,
         dp_model.py:511-516)."""
-        grad_dict = self.check_grad()
-        if self._pending_update is None:
+        with spans.span("phys_model.update"):
+            grad_dict = self.check_grad()
+            if self._pending_update is None:
+                return grad_dict
+            grads, scales = self._pending_update
+            self._pending_update = None
+            for (name, t), g in zip(self._trainable, grads):
+                t.grad = g * self._scale_of(name, scales)
+            sched = self._lr_schedule(self._sched_step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = group["peak_lr"] * sched
+            with spans.span("update.adamw"):
+                self.optimizer.step()
+                self.optimizer.zero_grad(set_to_none=True)
+            self._sched_step += 1
             return grad_dict
-        grads, scales = self._pending_update
-        self._pending_update = None
-        for (name, t), g in zip(self._trainable, grads):
-            t.grad = g * self._scale_of(name, scales)
-        sched = self._lr_schedule(self._sched_step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = group["peak_lr"] * sched
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        self._sched_step += 1
-        return grad_dict
 
     def check_grad_dict(self, grads, norms, gnorm, thresh=10.0):
         """Grad-norm rollback + per-tensor median-queue clipping

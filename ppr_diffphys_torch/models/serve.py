@@ -25,6 +25,7 @@ from ..ops import swap_lin_ang
 from ..sim.integrator import SimState
 from ..sim.kinematics import eval_fk
 from ..sim.soa import SoaWindow
+from ..utils import spans
 from .phys_model import phys_model
 
 # Env chunk of the per-env prologue: it evaluates the five MLPs at every
@@ -65,10 +66,12 @@ class RolloutServer:
         steps_fr = frame_start[:, None] + torch.as_tensor(
             m.steps_idx_fr, dtype=torch.float32, device=self.device
         )[None]
-        batch = m.get_batch_input(m.params, steps_fr)
+        with spans.span("prologue.mlp"):
+            batch = m.get_batch_input(m.params, steps_fr)
         q_init = torch.cat([batch["queried_q"][:, 0], batch["queried_ja"][:, 0]], -1)
         qd_init = swap_lin_ang(batch["queried_qd"][:, 0])
-        body_q, body_qd = eval_fk(m.env, q_init, qd_init)
+        with spans.span("prologue.fk"):
+            body_q, body_qd = eval_fk(m.env, q_init, qd_init)
         return body_q, body_qd, batch["queried_ja"]
 
     def _grid_prologue(self, frame_start):
@@ -80,17 +83,21 @@ class RolloutServer:
         sub = m.steps_per_fr_interval
         K = (m.total_frames - 1) * sub + 1
         S = sub * (self.frames - 1) + 1
-        g = torch.arange(K, dtype=torch.float32, device=self.device) / sub
-        batch = m.get_batch_input(m.params, g[None])
+        with spans.span("prologue.mlp"):
+            g = torch.arange(K, dtype=torch.float32, device=self.device) / sub
+            batch = m.get_batch_input(m.params, g[None])
         grid_q = batch["queried_q"][0]  # (K, 7)
         grid_ja = batch["queried_ja"][0]  # (K, n_dof)
         grid_qd = batch["queried_qd"][0]  # (K, 6 + n_dof)
-        k0 = torch.round(frame_start * sub).to(torch.long)
-        q_init = torch.cat([grid_q[k0], grid_ja[k0]], -1)
-        qd_init = swap_lin_ang(grid_qd[k0])
-        body_q, body_qd = eval_fk(m.env, q_init, qd_init)
-        idx = k0[:, None] + torch.arange(S, device=self.device)[None]  # (E, S)
-        return body_q, body_qd, grid_ja[idx]
+        with spans.span("prologue.gather"):
+            k0 = torch.round(frame_start * sub).to(torch.long)
+            q_init = torch.cat([grid_q[k0], grid_ja[k0]], -1)
+            qd_init = swap_lin_ang(grid_qd[k0])
+            idx = k0[:, None] + torch.arange(S, device=self.device)[None]  # (E, S)
+            queried_ja = grid_ja[idx]
+        with spans.span("prologue.fk"):
+            body_q, body_qd = eval_fk(m.env, q_init, qd_init)
+        return body_q, body_qd, queried_ja
 
     def _check(self, frame_start):
         """Validate frame_start on the caller's host array; returns (starts
@@ -118,20 +125,27 @@ class RolloutServer:
     @torch.no_grad()
     def prologue(self, frame_start=None):
         """Window inputs for ``frame_start`` (E,): the initial SimState and
-        the per-substep joint targets (S, E, n_qd)."""
-        k_host, grid = self._check(frame_start)
-        fs = torch.as_tensor(k_host, dtype=torch.float32, device=self.device)
-        if grid:
-            body_q, body_qd, queried_ja = self._grid_prologue(fs)
-        else:
-            parts = [self._per_env_prologue(c) for c in torch.split(fs, PER_ENV_CHUNK)]
-            body_q, body_qd, queried_ja = (torch.cat(p, 0) for p in zip(*parts))
-        E, S = queried_ja.shape[:2]
-        # (S, E, n_qd), contiguous: the window kernel reads it as it is
-        ref = torch.cat(
-            [torch.zeros((S, E, 6), device=self.device), queried_ja.transpose(0, 1)], -1
-        )
-        return SimState(body_q, body_qd), ref
+        the per-substep joint targets (S, E, n_qd). While the profiler
+        records, a call is the span ``prologue`` with its children
+        ``prologue.check``, ``prologue.mlp``, ``prologue.gather`` and
+        ``prologue.fk``."""
+        with spans.span("prologue"):
+            with spans.span("prologue.check"):
+                k_host, grid = self._check(frame_start)
+                fs = torch.as_tensor(k_host, dtype=torch.float32, device=self.device)
+            if grid:
+                body_q, body_qd, queried_ja = self._grid_prologue(fs)
+            else:
+                parts = [self._per_env_prologue(c) for c in torch.split(fs, PER_ENV_CHUNK)]
+                with spans.span("prologue.gather"):
+                    body_q, body_qd, queried_ja = (torch.cat(p, 0) for p in zip(*parts))
+            E, S = queried_ja.shape[:2]
+            # (S, E, n_qd), contiguous: the window kernel reads it as it is
+            with spans.span("prologue.gather"):
+                ref = torch.cat(
+                    [torch.zeros((S, E, 6), device=self.device), queried_ja.transpose(0, 1)],
+                    -1)
+            return SimState(body_q, body_qd), ref
 
     @torch.no_grad()
     def rollout(self, frame_start=None):

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..csrc import build as kbuild
+from ..utils import spans
 from .builder import JOINT_COMPOUND, JOINT_FIXED, JOINT_REVOLUTE
 from .integrator import (
     SemiImplicitIntegrator,
@@ -360,6 +361,7 @@ class SoaWindow:
 
     CPU tensors run the plain version (``integrator.rollout``); CUDA tensors
     launch ``csrc/soa_window.cu``, counted in ``self.launches``, or raise.
+    While the profiler records, each call is the span ``window``.
     The kernel runs one warp per env, ``envs_per_cta(E)`` envs per CTA,
     reads the state and the targets/acts in the caller's layout and writes
     the four (F,E,B,·) outputs directly: the wrapper copies nothing
@@ -379,22 +381,23 @@ class SoaWindow:
         self.launches = 0  # kernel launches of this wrapper
 
     def __call__(self, state: SimState, joint_targets, joint_acts, params: SimParams):
-        if params.joint_X_p is not None or params.body_com is not None:
-            raise ValueError("SoaWindow takes joint_X_p and body_com from the model (K1 has "
-                             "no anchor or COM planes); live anchors go through the "
-                             "with_xp interval kernels")
-        dev = state.body_q.device
-        S = self.sub * (self.F - 1) + 1
-        if joint_targets.shape[0] != S:
-            raise ValueError(
-                "joint_targets has %d rows; the window needs %d" % (joint_targets.shape[0], S)
-            )
-        if dev.type == "cpu":
-            return rollout(self.integrator, params, state, joint_targets,
-                           joint_acts, None, self.dt, self.sub)
-        if dev.type != "cuda":
-            raise ValueError("SoaWindow runs on cpu or cuda tensors, not %s" % dev)
-        return self._launch(state, joint_targets, joint_acts, params)
+        with spans.span("window"):
+            if params.joint_X_p is not None or params.body_com is not None:
+                raise ValueError("SoaWindow takes joint_X_p and body_com from the model (K1 has "
+                                 "no anchor or COM planes); live anchors go through the "
+                                 "with_xp interval kernels")
+            dev = state.body_q.device
+            S = self.sub * (self.F - 1) + 1
+            if joint_targets.shape[0] != S:
+                raise ValueError(
+                    "joint_targets has %d rows; the window needs %d" % (joint_targets.shape[0], S)
+                )
+            if dev.type == "cpu":
+                return rollout(self.integrator, params, state, joint_targets,
+                               joint_acts, None, self.dt, self.sub)
+            if dev.type != "cuda":
+                raise ValueError("SoaWindow runs on cpu or cuda tensors, not %s" % dev)
+            return self._launch(state, joint_targets, joint_acts, params)
 
     def _launch(self, state, joint_targets, joint_acts, params):
         model = self.model

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..csrc import build as kbuild
+from ..utils import spans
 from .integrator import SemiImplicitIntegrator, SimParams, SimState, interval
 from .soa import (TRACED_NAMES, XP_NAMES, PackedConsts, check_device, envs_per_cta, ptr,
                   sim_args, traced_planes, window_work)
@@ -87,12 +88,13 @@ class _IntervalFn(torch.autograd.Function):
     def backward(ctx, dq, dqd):
         sstate, tgt, act, res, *planes = ctx.saved_tensors
         E, B = sstate.shape[1], sstate.shape[3]
-        if dq is None:
-            dq = sstate.new_zeros((7, B, E))
-        if dqd is None:
-            dqd = sstate.new_zeros((6, B, E))
-        dbq, dbqd, dtgt, dact, dres, dplanes = ctx.runner._backward(
-            sstate, tgt, act, res, planes, dq, dqd)
+        with spans.span("backward.interval"):
+            if dq is None:
+                dq = sstate.new_zeros((7, B, E))
+            if dqd is None:
+                dqd = sstate.new_zeros((6, B, E))
+            dbq, dbqd, dtgt, dact, dres, dplanes = ctx.runner._backward(
+                sstate, tgt, act, res, planes, dq, dqd)
         return (None, dbq, dbqd, dtgt, dact, dres, *dplanes)
 
 
@@ -106,7 +108,10 @@ class DiffInterval:
     ``with_xp``. ``with_act=False`` / ``with_res=False`` (the training
     default, as the reference multiplies torques and residual forces by 0)
     treat act / res as zero and give them no gradient. Kernel launches are
-    counted in ``self.launches``."""
+    counted in ``self.launches``; while the profiler records, each call is
+    the span ``rollout.interval`` and K3 counts the (env, substep, contact)
+    triples it processes (``k3.contact_triples``) and those that penetrate
+    (``k3.active_contacts``)."""
 
     def __init__(self, integrator: SemiImplicitIntegrator, dt: float, substeps: int,
                  with_res: bool = False, with_act: bool = False, with_xp: bool = False):
@@ -119,22 +124,24 @@ class DiffInterval:
         self.with_xp = bool(with_xp)
         self.names = TRACED_NAMES + (XP_NAMES if self.with_xp else ())
         self._consts = PackedConsts(self.model)
+        self._contacts = {}  # device -> contact_tables(model, device), for the K3 counters
         self.launches = {KERNEL_FWD: 0, KERNEL_BWD: 0, KERNEL_REDUCE: 0}
 
     def __call__(self, bq, bqd, tgt, act, res, *planes):
-        if len(planes) != len(self.names):
-            raise ValueError("need the %d planes %s" % (len(self.names), self.names))
-        if tgt.shape[0] != self.S:
-            raise ValueError("tgt has %d substep rows; the interval has %d"
-                             % (tgt.shape[0], self.S))
-        act = act if self.with_act else None
-        res = res if self.with_res else None
-        dev = bq.device
-        if dev.type == "cpu":
-            return interval(self.integrator, self.dt, bq, bqd, tgt, act, res, *planes)
-        if dev.type != "cuda":
-            raise ValueError("the interval runs on cpu or cuda tensors, not %s" % dev)
-        return _IntervalFn.apply(self, bq, bqd, tgt, act, res, *planes)
+        with spans.span("rollout.interval"):
+            if len(planes) != len(self.names):
+                raise ValueError("need the %d planes %s" % (len(self.names), self.names))
+            if tgt.shape[0] != self.S:
+                raise ValueError("tgt has %d substep rows; the interval has %d"
+                                 % (tgt.shape[0], self.S))
+            act = act if self.with_act else None
+            res = res if self.with_res else None
+            dev = bq.device
+            if dev.type == "cpu":
+                return interval(self.integrator, self.dt, bq, bqd, tgt, act, res, *planes)
+            if dev.type != "cuda":
+                raise ValueError("the interval runs on cpu or cuda tensors, not %s" % dev)
+            return _IntervalFn.apply(self, bq, bqd, tgt, act, res, *planes)
 
     # ---- kernel launches ---------------------------------------------------
     def _common(self, tgt, act, res, planes, E):
@@ -234,6 +241,12 @@ class DiffInterval:
             ptr(dtgt), ptr(dact), ptr(dres), ptr(dplanes), *tail, envs_per_cta(E), stream)
         kbuild.check(status, KERNEL_BWD)
         self.launches[KERNEL_BWD] += 1
+        if spans.recording():
+            if dev not in self._contacts:
+                self._contacts[dev] = contact_tables(self.model, dev)
+            spans.count("k3.contact_triples", self.S * E * self.model.contact_count)
+            spans.count("k3.active_contacts",
+                        active_contact_count(self.model, sstate, self._contacts[dev]))
 
         shared = [not (p.shape[-1] == E and E > 1) for p in pl]
         summed = None
@@ -302,7 +315,7 @@ def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: S
     sg_params = _detached(params)
 
     def observables(bq, bqd, i):
-        with torch.no_grad():
+        with spans.span("rollout.observables"), torch.no_grad():
             _, grf, jaf = integrator.compute_forces(
                 sg_params, SimState(bq.detach().permute(2, 1, 0), bqd.detach().permute(2, 1, 0)),
                 joint_targets[i].detach(),
@@ -390,10 +403,22 @@ def active_contacts(model, sstate) -> float:
     """Number of (substep, env, contact) triples whose contact point is below
     the ground in a K2 state export (S,E,13,B): the contacts K3's adjoint
     does work for."""
+    return float(active_contact_count(model, sstate))
+
+
+def contact_tables(model, device) -> tuple:
+    """The contacts' body index, body-frame point and distance on ``device``."""
+    return (torch.as_tensor(np.asarray(model.contact_body, np.int64), device=device),
+            torch.as_tensor(np.asarray(model.contact_point, np.float32), device=device),
+            torch.as_tensor(np.asarray(model.contact_dist, np.float32), device=device))
+
+
+def active_contact_count(model, sstate, tables=None) -> torch.Tensor:
+    """``active_contacts`` as a 0-d int64 tensor on the export's device,
+    read without making the host wait when ``tables`` (``contact_tables``
+    on that device) are given."""
+    cb, pt, dist = tables if tables is not None else contact_tables(model, sstate.device)
     with torch.no_grad():
-        cb = torch.as_tensor(np.asarray(model.contact_body, np.int64), device=sstate.device)
-        pt = torch.as_tensor(np.asarray(model.contact_point, np.float32), device=sstate.device)
-        dist = torch.as_tensor(np.asarray(model.contact_dist, np.float32), device=sstate.device)
         t = sstate[:, :, 0:3][..., cb]  # (S,E,3,C)
         q = sstate[:, :, 3:7][..., cb]
         u, w = q[:, :, 0:3], q[:, :, 3:4]
@@ -401,4 +426,4 @@ def active_contacts(model, sstate) -> float:
         uv = torch.linalg.cross(u, v.expand_as(u), dim=2)
         rot = v + 2.0 * (w * uv + torch.linalg.cross(u, uv, dim=2))
         y = rot[:, :, 1] + t[:, :, 1] - dist
-        return float((y < 0).sum())
+        return (y < 0).sum()

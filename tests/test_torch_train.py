@@ -152,7 +152,8 @@ def test_cli_runs_on_cpu(tmp_path):
     2 iters (rounds start at iters 0 and 2), JSON loss lines on stdout, and
     the files a round of the JAX CLI writes (checkpoints, the four videos,
     the OBJ strip, tensorboard events, whose eval/traj and per-iteration
-    loss scalars equal the JSON lines) plus the --profile_dir trace."""
+    loss scalars equal the JSON lines) plus the --profile_dir trace and the
+    summary of the program's spans beside it."""
     from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
     prof = tmp_path / "prof"
@@ -188,3 +189,12 @@ def test_cli_runs_on_cpu(tmp_path):
         got = [(e.step, e.value) for e in acc.Scalars(key)]
         assert got == [(r["it"], pytest.approx(r[key], rel=1e-6)) for r in recs], key
     assert (prof / "trace.json").stat().st_size > 0
+    # the program's spans of the traced iteration (2): summed in spans.json,
+    # ranges in the Chrome trace
+    summary = json.loads((prof / "spans.json").read_text())
+    tree = summary["spans"]
+    assert tree["phys_model.forward"]["roots"] == 1 and tree["phys_model.update"]["roots"] == 1
+    assert tree["rollout.interval"]["calls"] == 2 and tree["forward.backward"]["calls"] == 1
+    ranges = {e.get("name") for e in json.loads((prof / "trace.json").read_text())["traceEvents"]}
+    assert {"phys_model.forward", "forward.rollout", "rollout.interval",
+            "update.grad_read"} <= ranges
