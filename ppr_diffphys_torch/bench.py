@@ -172,7 +172,7 @@ class Bench:
                             joint_target_ke=ke, joint_target_kd=kd)
         q, qd, _, _ = soa_grad.rollout_soa(
             w.integrator, params, tint.SimState(bq0, bqd0), self.tgt, None, None, DT,
-            self.interval, interval_fn=self.kernel)
+            self.interval, interval_fn=self.kernel, observables=False)
         loss = q.pow(2).mean() + qd.pow(2).mean()
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), dict(zip(GRAD_NAMES, grads))

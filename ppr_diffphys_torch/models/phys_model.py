@@ -595,9 +595,12 @@ class phys_model:
                 # gradient scrubbing at the rollout boundary (reference
                 # remove_nan/clamp, dp_model.py:1294-1384)
                 scrub = scrub_grad_ref if quirks else scrub_grad
+                # the grad step discards aux (as the JAX grad step never
+                # computes it), so the vis-only grf/jaf are skipped
                 sim_q, sim_qd, grfs, jafs = rollout_soa(
                     self.integrator, sp, state0, scrub(ref_ja), scrub(torques),
                     scrub(res_f), self.dt, sub, interval_fn=self._interval(xp is not None),
+                    observables=False,
                 )
             elif xp is not None:
                 # live anchors: the window (K1) has no anchor planes, so the eval
@@ -657,8 +660,8 @@ class phys_model:
             sim_traj=sim_q[:, 0],  # (F, B, 7) env 0, for vis
             target_traj=target_position[0],
             pid_ref=queried_position[0],
-            grf=grfs[:, 0],  # warp layout [torque, force]
-            jaf=jafs[:, 0],
+            grf=None if grfs is None else grfs[:, 0],  # warp layout [torque, force]
+            jaf=None if jafs is None else jafs[:, 0],
         )
         aux = self._extend_aux(aux, params, batch, steps_fr, sim_position)
         return out, aux

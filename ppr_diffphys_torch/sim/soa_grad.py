@@ -15,9 +15,10 @@ kernels, counterpart of ``ppr_diffphys_tpu/sim/pallas_soa_grad.py``
   coupling's per-env ``joint_X_p``.
 - :func:`rollout_soa` chains the intervals of a window, with the
   frame-boundary observables from the plain force pipeline under
-  ``torch.no_grad()``. A live ``params.joint_X_p`` goes through the
-  anchor planes (the interval must be built ``with_xp``); a live
-  ``params.body_com`` raises, as no kernel takes a COM plane.
+  ``torch.no_grad()`` when the caller asks for them. A live
+  ``params.joint_X_p`` goes through the anchor planes (the interval must
+  be built ``with_xp``); a live ``params.body_com`` raises, as no kernel
+  takes a COM plane.
 
 The TPU package's VMEM planners (residuals modes, ``plan_chunks``,
 ``pick_e_tile``, ``make_diff_chain``'s chunking) only size TPU memory and
@@ -279,7 +280,7 @@ def _detached(params: SimParams) -> SimParams:
 def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: SimState,
                 joint_targets, joint_acts, res_f, dt: float, substeps_per_frame: int,
                 interval_fn: DiffInterval = None, with_res: bool = False,
-                with_act: bool = False):
+                with_act: bool = False, observables: bool = True):
     """The windowed rollout on frame intervals (pallas_soa_grad.py:765-862),
     with ``integrator.rollout``'s contract: states recorded at frame
     boundaries, grf/jaf from each boundary substep (evaluated by the plain
@@ -289,7 +290,10 @@ def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: S
     or None. Returns (body_q (F,E,B,7), body_qd (F,E,B,6), grf, jaf
     (F,E,B,6)); gradients flow to state0, the targets, acts, residual forces
     and params, a live ``joint_X_p`` ((B,7) or (E,B,7)) included, through
-    the interval kernels."""
+    the interval kernels. ``observables=False`` skips the F boundary force
+    evaluations and returns None for grf and jaf; the states and gradients
+    are the same, since the observables neither feed them nor draw random
+    numbers."""
     if params.body_com is not None:
         raise ValueError("rollout_soa takes body_com from the model: no interval kernel "
                          "has a COM plane")
@@ -313,8 +317,11 @@ def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: S
     act_p = None if joint_acts is None else joint_acts.permute(0, 2, 1).contiguous()
     res_p = None if res_f is None else res_f.permute(0, 3, 2, 1).contiguous()  # (S,6,B,E)
     sg_params = _detached(params)
+    grfs, jafs = [], []
 
-    def observables(bq, bqd, i):
+    def observe(bq, bqd, i):
+        if not observables:
+            return
         with spans.span("rollout.observables"), torch.no_grad():
             _, grf, jaf = integrator.compute_forces(
                 sg_params, SimState(bq.detach().permute(2, 1, 0), bqd.detach().permute(2, 1, 0)),
@@ -322,28 +329,28 @@ def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: S
                 None if joint_acts is None else joint_acts[i].detach(),
                 None if res_f is None else res_f[i].detach(),
             )
-        return grf, jaf
+        grfs.append(grf)
+        jafs.append(jaf)
 
     bq = state0.body_q.permute(2, 1, 0)
     bqd = state0.body_qd.permute(2, 1, 0)
-    qs, qds, grfs, jafs = [], [], [], []
+    qs, qds = [], []
     for f in range(n_intervals):
         s0 = f * sub
         qs.append(bq)
         qds.append(bqd)
-        grf, jaf = observables(bq, bqd, s0)
-        grfs.append(grf)
-        jafs.append(jaf)
+        observe(bq, bqd, s0)
         sl = slice(s0, s0 + sub)
         bq, bqd = interval_fn(
             bq, bqd, tgt_p[sl], None if act_p is None else act_p[sl],
             None if res_p is None else res_p[sl], *tr)
-    grf, jaf = observables(bq, bqd, S - 1)
+    observe(bq, bqd, S - 1)
     qs.append(bq)
     qds.append(bqd)
-    grfs.append(grf)
-    jafs.append(jaf)
     aos = lambda xs: torch.stack(xs, 0).permute(0, 3, 2, 1)  # (F,·,B,E) -> (F,E,B,·)
+    if not observables:
+        spans.count("rollout.observables_skipped", n_intervals + 1)
+        return aos(qs), aos(qds), None, None
     return aos(qs), aos(qds), torch.stack(grfs, 0), torch.stack(jafs, 0)
 
 

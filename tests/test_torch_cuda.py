@@ -249,6 +249,60 @@ def test_interval_chain_equals_window_bitwise():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("anchors", ["model", "live"])
+def test_rollout_without_observables_is_bitwise_the_same(anchors):
+    """rollout_soa on K2/K3 at a1, 64 envs x 3 frames, with and without the
+    frame-boundary observables (observables=False, the training forward's):
+    the frame states and the gradients of a scalar loss (gains, masses, the
+    start state, the targets and live per-env anchors) bit for bit, and no
+    grf/jaf without them. Deterministic algorithms on, so that the planes'
+    index backward sums in a fixed order on both sides."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    model = _model("a1")
+    E, F = 64, 3
+    state, tgt, _, params = _inputs(model, E, F, False, dev)
+    integ = tint.SemiImplicitIntegrator(model)
+    di = soa_grad.DiffInterval(integ, DT, SUB, with_xp=anchors == "live")
+    xp = None
+    if anchors == "live":
+        xp = torch.as_tensor(synthetic.perturbed_anchors(model, E, seed=5), device=dev)
+    rng = np.random.RandomState(3)
+    w = [torch.as_tensor(rng.randn(F, E, model.n_links, k).astype(np.float32), device=dev)
+         for k in (7, 6)]
+
+    def run(observables):
+        leaves = [x.clone().requires_grad_() for x in (
+            params.joint_target_ke, params.joint_target_kd, params.body_mass, state.body_q,
+            state.body_qd, tgt) + (() if xp is None else (xp,))]
+        ke, kd, mass, bq0, bqd0, tg = leaves[:6]
+        inertia = params.body_inertia / params.body_mass[:, None, None] * mass[:, None, None]
+        p = tint.SimParams(mass, 1.0 / mass, inertia, torch.linalg.inv(inertia), ke, kd,
+                           joint_X_p=None if xp is None else leaves[6])
+        q, qd, grf, jaf = soa_grad.rollout_soa(
+            integ, p, tint.SimState(bq0, bqd0), tg, None, None, DT, SUB, interval_fn=di,
+            observables=observables)
+        grads = torch.autograd.grad((q * w[0]).sum() + (qd * w[1]).sum(), leaves)
+        return [q.detach(), qd.detach(), *grads], grf, jaf
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        on, grf, jaf = run(True)
+        off, grf_off, jaf_off = run(False)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert grf.shape == jaf.shape == (F, E, model.n_links, 6)
+    assert grf_off is None and jaf_off is None
+    assert di.launches["soa_interval_fwd"] == 2 * (F - 1)
+    assert di.launches["soa_interval_bwd"] == 2 * (F - 1)
+    for i, (a, b) in enumerate(zip(on, off)):
+        assert torch.isfinite(a).all(), i
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
 def test_cuda_interval_raises_without_its_library(monkeypatch):
     """A CUDA tensor never takes the plain path: a missing library raises."""
     _need_gpu()

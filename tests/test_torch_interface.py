@@ -208,6 +208,10 @@ def test_eval_forward_camera_and_query(models):
                                    err_msg=k)
     assert not any(isinstance(k, tuple) and k[0] == "window" for k in tm._kernels)
     np.testing.assert_allclose(tm.sim_trajs, jm.sim_trajs, atol=1e-5, rtol=0)
+    # the chain's frame-boundary forces, which the eval's visualization reads
+    for a, b in ((tm.grfs, jm.grfs), (tm.jafs, jm.jafs)):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=1e-4 * np.abs(b).max(), rtol=0)
     np.testing.assert_allclose(tm.get_camera(), jm.get_camera(), atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(tm.distilled_trajs, jm.distilled_trajs, atol=1e-5, rtol=0)
     jq, tq = jm.query(img_size=(64, 48)), tm.query(img_size=(64, 48))

@@ -81,7 +81,7 @@ def _jax_loss(jm, norm_I, wq, wqd, roll):
     return f
 
 
-def _port_value_and_grads(tm, norm_I, wq, wqd, args, interval_fn=None):
+def _port_value_and_grads(tm, norm_I, wq, wqd, args, interval_fn=None, observables=True):
     ts = [torch.as_tensor(a).requires_grad_() for a in args]
     ke, kd, mass, tgt, act, res, bq0, bqd0 = ts
     I = torch.as_tensor(norm_I) * mass[..., None, None]
@@ -90,7 +90,8 @@ def _port_value_and_grads(tm, norm_I, wq, wqd, args, interval_fn=None):
     if interval_fn is None:
         interval_fn = soa_grad.make_diff_interval(integ, DT, SUB, with_res=True, with_act=True)
     q, qd, grf, jaf = soa_grad.rollout_soa(
-        integ, p, tint.SimState(bq0, bqd0), tgt, act, res, DT, SUB, interval_fn=interval_fn)
+        integ, p, tint.SimState(bq0, bqd0), tgt, act, res, DT, SUB, interval_fn=interval_fn,
+        observables=observables)
     loss = (q * torch.as_tensor(wq)).sum() + (qd * torch.as_tensor(wqd)).sum()
     return loss, torch.autograd.grad(loss, ts, allow_unused=True), (q, qd, grf, jaf)
 
@@ -141,6 +142,54 @@ def test_rollout_soa_observables_match_the_window(models):
                        tgt, act, res, DT, SUB)
     for a, b in zip(outs, ref):
         torch.testing.assert_close(a.detach(), b, rtol=0, atol=1e-6)
+
+
+def test_rollout_soa_eval_chain_keeps_its_observables(models):
+    """The lab4d eval's chain (live per-env anchors through the with_xp
+    interval, no gradient, no acts or residual forces) still returns the
+    boundary grf/jaf that its visualization reads, equal to the plain
+    window's with the same anchors, as are its frame states: each within
+    1e-6 of its largest entry (the with_xp interval forms the joint frames
+    from the anchor planes, the window from joint_X_p, the same quantities
+    rounded another way; measured 2e-7)."""
+    _, (jm, tm) = models
+    args, norm_I, _, _ = _problem(jm, False, seed=4)
+    ke, kd, mass, tgt, _, _, bq0, bqd0 = (torch.as_tensor(a) for a in args)
+    I = torch.as_tensor(norm_I) * mass[..., None, None]
+    p = tint.SimParams(mass, 1.0 / mass, I, torch.linalg.inv(I), ke, kd,
+                       joint_X_p=torch.as_tensor(perturbed_anchors(tm, E, seed=5)))
+    integ = tint.SemiImplicitIntegrator(tm)
+    with torch.no_grad():
+        outs = soa_grad.rollout_soa(
+            integ, p, tint.SimState(bq0, bqd0), tgt, None, None, DT, SUB,
+            interval_fn=soa_grad.make_diff_interval(integ, DT, SUB, with_xp=True))
+    ref = tint.rollout(integ, p, tint.SimState(bq0, bqd0), tgt, None, None, DT, SUB)
+    assert outs[2] is not None and outs[3] is not None
+    for a, b in zip(outs, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("anchors", ["model", "live"])
+def test_rollout_soa_without_observables_is_bitwise_the_same(models, anchors):
+    """observables=False (the training forward's) returns None for grf and
+    jaf, and the frame states and every gradient of the default, bit for
+    bit: the observables run without gradient on detached inputs and draw
+    no random numbers. With the model's anchors and with live per-env
+    anchors (the lab4d step's with_xp interval)."""
+    _, (jm, tm) = models
+    args, norm_I, wq, wqd = _problem(jm, True, seed=10)
+    if anchors == "model":
+        run = lambda obs: _port_value_and_grads(tm, norm_I, wq, wqd, args, observables=obs)
+    else:
+        xp = perturbed_anchors(tm, E, seed=6)
+        run = lambda obs: _port_xp(tm, norm_I, wq, wqd, args, xp, observables=obs)
+    loss0, g0, outs0 = run(True)
+    loss1, g1, outs1 = run(False)
+    assert outs0[2] is not None and outs1[2] is None and outs1[3] is None
+    for a, b in zip([loss0, *outs0[:2], *g0], [loss1, *outs1[:2], *g1]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(b, a, rtol=0, atol=0)
 
 
 def test_interval_without_act_and_res_gives_them_no_gradient(models):
@@ -218,7 +267,7 @@ def _jax_loss_xp(jm, norm_I, wq, wqd, roll):
     return f
 
 
-def _port_xp(tm, norm_I, wq, wqd, args, xp, interval_fn=None):
+def _port_xp(tm, norm_I, wq, wqd, args, xp, interval_fn=None, observables=True):
     ts = [torch.tensor(np.asarray(a)).requires_grad_() for a in tuple(args) + (xp,)]
     ke, kd, mass, tgt, act, res, bq0, bqd0, xpt = ts
     I = torch.as_tensor(norm_I) * mass[..., None, None]
@@ -227,10 +276,11 @@ def _port_xp(tm, norm_I, wq, wqd, args, xp, interval_fn=None):
     if interval_fn is None:
         interval_fn = soa_grad.make_diff_interval(integ, DT, SUB, with_res=True, with_act=True,
                                                   with_xp=True)
-    q, qd, _, _ = soa_grad.rollout_soa(
-        integ, p, tint.SimState(bq0, bqd0), tgt, act, res, DT, SUB, interval_fn=interval_fn)
+    q, qd, grf, jaf = soa_grad.rollout_soa(
+        integ, p, tint.SimState(bq0, bqd0), tgt, act, res, DT, SUB, interval_fn=interval_fn,
+        observables=observables)
     loss = (q * torch.as_tensor(wq)).sum() + (qd * torch.as_tensor(wqd)).sum()
-    return loss, torch.autograd.grad(loss, ts, allow_unused=True)
+    return loss, torch.autograd.grad(loss, ts, allow_unused=True), (q, qd, grf, jaf)
 
 
 @pytest.mark.parametrize("lanes", ["per_env", "shared"])
@@ -249,7 +299,7 @@ def test_rollout_soa_live_anchors_match_jax(models, lanes):
     xla = _jax_loss_xp(jm, norm_I, wq, wqd,
                        lambda p, s, t, a, r: jint.rollout(jinteg, p, s, t, a, r, DT, SUB))
     v_x, g_x = jax.value_and_grad(xla, argnums=tuple(range(9)))(*jargs)
-    loss, g_t = _port_xp(tm, norm_I, wq, wqd, args, xp)
+    loss, g_t, _ = _port_xp(tm, norm_I, wq, wqd, args, xp)
     names = NAMES + ["joint_X_p"]
     np.testing.assert_allclose(float(loss.detach()), float(v_x), rtol=1e-4)
     _check_grads(g_x, g_t, names)
@@ -274,7 +324,7 @@ def test_model_anchors_passed_live_equal_no_anchors(models):
     _, (jm, tm) = models
     args, norm_I, wq, wqd = _problem(jm, True, seed=8)
     loss0, g0, _ = _port_value_and_grads(tm, norm_I, wq, wqd, args)
-    loss1, g1 = _port_xp(tm, norm_I, wq, wqd, args, np.asarray(tm.joint_X_p))
+    loss1, g1, _ = _port_xp(tm, norm_I, wq, wqd, args, np.asarray(tm.joint_X_p))
     np.testing.assert_allclose(float(loss1.detach()), float(loss0.detach()), rtol=1e-4)
     _check_grads([g.numpy() for g in g0], g1[:8], NAMES)
 

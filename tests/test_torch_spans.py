@@ -35,7 +35,6 @@ TRAIN_TREE = {
     "forward.inputs": "phys_model.forward",
     "forward.fk": "phys_model.forward",
     "forward.rollout": "phys_model.forward",
-    "rollout.observables": "forward.rollout",
     "rollout.interval": "forward.rollout",
     "forward.losses": "phys_model.forward",
     "forward.backward": "phys_model.forward",
@@ -109,7 +108,9 @@ def test_training_step_records_the_forward_tree(traced_cpu_steps):
         assert s["roots"] == STEPS, name
         assert 0.0 <= s["self_ms"] <= s["host_ms"] + 1e-9, name
     assert sp["rollout.interval"]["calls"] == (F - 1) * STEPS
-    assert sp["rollout.observables"]["calls"] == F * STEPS
+    # training skips the vis-only frame-boundary observables, F a step
+    assert "rollout.observables" not in sp
+    assert traced_cpu_steps["summary"]["counters"]["rollout.observables_skipped"] == F * STEPS
     assert sp["forward.fk"]["calls"] == 2 * STEPS
     for root in ("phys_model.forward", "phys_model.update", "forward.rollout"):
         kids = sum(s["host_ms"] for n, s in sp.items() if s["parent"] == root)
