@@ -194,6 +194,9 @@ class phys_interface(phys_model):
     """Reference dp_interface.py:17-325."""
 
     has_live_xp = True  # query_ja threads joint_X_p into every forward
+    # the step keeps its activation checkpointing, field gathers and host
+    # reads: it runs eagerly
+    step_graph = False
 
     def __init__(self, opts, model_dict, dt=5e-4, copy_weights=False, device=None):
         self.copy_weights = copy_weights
@@ -363,7 +366,7 @@ class phys_interface(phys_model):
             starts.append(torch.clamp(torch.round(u * span), min=0.0) + float(off[vidid]))
         starts = torch.cat(starts)
         perm = torch.randperm(starts.shape[0], generator=self.generator)
-        return starts[perm[: self.num_envs]].to(torch.float32).to(self.device)
+        return starts[perm[: self.num_envs]].to(torch.float32)
 
     # -- batch input (reference :220-249) ------------------------------
     def query_kinematics_groundtruth(self, params, steps_fr):

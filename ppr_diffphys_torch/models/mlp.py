@@ -25,7 +25,7 @@
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
@@ -60,6 +60,8 @@ class FrameSampler:
 
     frame_offset_raw: tuple
     time_scale: float = 1.0
+    # the offsets per device, copied once (a lookup copies nothing from the host)
+    _off_by_dev: dict = field(default_factory=dict, init=False, compare=False, repr=False)
 
     @property
     def offsets(self):
@@ -75,7 +77,11 @@ class FrameSampler:
         return int((off[1:] - off[:-1]).max())
 
     def _off(self, like):
-        return torch.as_tensor(self.offsets, dtype=torch.float32, device=like.device)
+        off = self._off_by_dev.get(like.device)
+        if off is None:
+            off = self._off_by_dev[like.device] = torch.as_tensor(
+                self.offsets, dtype=torch.float32, device=like.device)
+        return off
 
     def frame_to_vid(self, frame_id: torch.Tensor) -> torch.Tensor:
         """Video id of (possibly fractional) raw frame ids."""

@@ -10,7 +10,8 @@ time-MLPs, the mocap table and its interpolation, the window inputs
 Training (reference dp_model.py:56-1011, the JAX ``_forward_pure`` and
 host loop API): ``forward`` computes the loss dict and, in train mode, the
 gradients (the rollout runs on ``sim/soa_grad.py``'s interval kernels on
-CUDA, their plain version on the CPU); ``update`` runs the grad-norm
+CUDA, their plain version on the CPU; the unsharded CUDA step replays one
+captured CUDA graph, ``models/step_graph.py``); ``update`` runs the grad-norm
 rollback and the per-tensor median-queue clipping, then AdamW with the
 OneCycle schedule per parameter group; ``save_checkpoint`` pickles the JAX
 package's checkpoint layout (flax-layout MLP trees), so checkpoints move
@@ -40,6 +41,7 @@ Not here: orbax.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import pickle
@@ -76,6 +78,7 @@ from .mlp import (
     timemlp_params_from_jax,
     timemlp_params_to_jax,
 )
+from .step_graph import StepGraph
 
 MLP_NAMES = ("root_pose_mlp", "joint_angle_mlp", "vel_mlp", "torque_mlp",
              "residual_f_mlp")
@@ -130,6 +133,9 @@ class phys_model:
     # True on subclasses whose batches carry a live joint_X_p (the lab4d
     # interface's query_ja): the rollout then runs the with_xp interval
     has_live_xp = False
+    # whether the unsharded training step may replay as one CUDA graph
+    # (models/step_graph.py); the lab4d interface's step stays eager
+    step_graph = True
 
     def __init__(self, opts, dataloader, dt=5e-4, device=None):
         self.opts = opts
@@ -228,6 +234,8 @@ class phys_model:
         self.norm_body_inertia = self._t(self.env.body_inertia)
 
         self._mesh_verts, self._mesh_faces, self._mesh_vbody = self.env.collision_mesh()
+        self._foot_verts = self._t(self._mesh_verts)
+        self._foot_vbody = torch.as_tensor(self._mesh_vbody, dtype=torch.long, device=self.device)
 
         # ---- parameters ----------------------------------------------------
         self.generator = torch.Generator().manual_seed(int(opts.get("seed", 0)))
@@ -258,6 +266,10 @@ class phys_model:
         self._grad_accum = []
         self._pending_update = None
         self._kernels = {}
+        # on CUDA the training step replays a captured graph (the StepGraph
+        # of the current key); elsewhere it runs eagerly
+        self._graphed = self.step_graph and self.device.type == "cuda"
+        self._graph = None
 
     def _t(self, x):
         return torch.tensor(np.asarray(x), dtype=torch.float32, device=self.device)
@@ -322,6 +334,11 @@ class phys_model:
         self.steps_idx = np.arange(n_steps)
         self.steps_idx_fr = self.steps_idx / self.steps_per_fr_interval
         self.frame2step = self.steps_idx[:: self.steps_per_fr_interval]
+        # the same on the device, for a forward that copies nothing from the host
+        self._frame2step_t = torch.as_tensor(self.frame2step, dtype=torch.long,
+                                             device=self.device)
+        self._steps_idx_fr_t = torch.as_tensor(self.steps_idx_fr, dtype=torch.float32,
+                                               device=self.device)
 
     def _interp_amp(self, steps_fr):
         """Linear interpolation of the mocap table at fractional frames, with
@@ -341,7 +358,9 @@ class phys_model:
             body_mass=body_mass,
             body_inv_mass=1.0 / body_mass,
             body_inertia=inertia,
-            body_inv_inertia=torch.linalg.inv(inertia),
+            # inv's factorization without its check, which reads the result
+            # on the host
+            body_inv_inertia=torch.linalg.inv_ex(inertia)[0],
             joint_target_ke=params["target_ke"],
             joint_target_kd=params["target_kd"],
             joint_X_p=joint_X_p,
@@ -439,8 +458,7 @@ class phys_model:
 
     def get_foot_height(self, body_q):
         """Min collision-mesh height (reference dp_model.py:574-579)."""
-        verts = self._t(self._mesh_verts)
-        vbody = torch.as_tensor(self._mesh_vbody, dtype=torch.long, device=body_q.device)
+        verts, vbody = self._foot_verts, self._foot_vbody
         rot = quat_to_matrix(body_q[..., 3:7])  # (..., B, 3, 3)
         row1 = rot[..., vbody, 1, :]  # (..., V, 3)
         y = torch.sum(row1 * verts, -1) + body_q[..., vbody, 1]
@@ -528,11 +546,14 @@ class phys_model:
                 self.integrator, self.dt, self.steps_per_fr_interval, n_frames)
         return self._kernels[key]
 
-    def _forward_pure(self, params, frame_start, progress, weights, is_train, shard=None):
+    def _forward_pure(self, params, frame_start, noise, weights, is_train, shard=None):
         """The whole forward: mocap targets, MLP queries, FK, the rollout
         and the losses (JAX phys_model._forward_pure). ``frame_start`` holds
-        every env; with ``shard`` (``sharding.env_sharding``) this rank runs
-        its slice and the losses reduce the per-env rows of every slice."""
+        every env, and ``noise`` (``_draw_noise``, on the device, or None)
+        the initial state's noise of every env; with ``shard``
+        (``sharding.env_sharding``) this rank runs its slice and the losses
+        reduce the per-env rows of every slice. Copies nothing from the host
+        and reads nothing back."""
         shard = shard or sharding.env_sharding(None)
         E_all = frame_start.shape[0]
         envs = shard.rows(E_all)
@@ -541,10 +562,9 @@ class phys_model:
         S = len(self.steps_idx)
         sub = self.steps_per_fr_interval
         dev = self.device
-        f2s = torch.as_tensor(self.frame2step, dtype=torch.long, device=dev)
+        f2s = self._frame2step_t
 
-        steps_fr = frame_start[:, None] + torch.as_tensor(
-            self.steps_idx_fr, dtype=torch.float32, device=dev)[None]
+        steps_fr = frame_start[:, None] + self._steps_idx_fr_t[None]
 
         # out-of-sequence mask over frames (reference dp_model.py:677-682)
         vidid = self.samplers["joint_angle_mlp"].frame_to_vid(steps_fr[:, f2s])
@@ -568,14 +588,8 @@ class phys_model:
 
         # initial state (+ annealed noise, reference dp_model.py:700-712)
         q_init = torch.cat([batch["queried_q"][:, 0], batch["queried_ja"][:, 0]], -1)
-        if is_train and self.noise_std > 0:
-            noise_ratio = float(np.clip(1.0 - 1.5 * progress, 0.0, 1.0))
-            # drawn for every env, so the generator stays in step on every rank
-            noise = torch.randn((E_all, q_init.shape[1]), generator=self.generator)[envs].to(dev)
-            noise = noise * self.noise_std * noise_ratio
-            noise[:, :3] = 0.0
-            noise[:, 3:7] *= 5.0
-            q_init = q_init + noise
+        if noise is not None:
+            q_init = q_init + noise[envs]
         qd_init = swap_lin_ang(batch["queried_qd"][:, 0])
         with spans.span("forward.fk"):
             body_q0, body_qd0 = eval_fk(self.env, q_init, qd_init, joint_X_p=xp)
@@ -696,9 +710,31 @@ class phys_model:
         return [float(self.opts.get(k + "_wt", 0.0)) for k in LOSS_KEYS]
 
     def compute_frame_start(self):
-        """Window starts of every env (on every rank the same draw)."""
+        """Window starts of every env, on the host (on every rank the same
+        draw)."""
         u = torch.rand((self.num_envs,), generator=self.generator)
-        return torch.round(u * (self.total_frames - self.frames_per_wdw)).to(self.device)
+        return torch.round(u * (self.total_frames - self.frames_per_wdw))
+
+    def _draw_noise(self, n_envs):
+        """The training initial state's noise of every env (reference
+        dp_model.py:700-712), on the host, annealed by ``progress``; None
+        without noise. Drawn for every env, so that the generator stays in
+        step on every rank."""
+        if self.noise_std <= 0:
+            return None
+        ratio = float(np.clip(1.0 - 1.5 * self.progress, 0.0, 1.0))
+        noise = torch.randn((n_envs, 7 + self.n_dof), generator=self.generator)
+        noise = noise * self.noise_std * ratio
+        noise[:, :3] = 0.0
+        noise[:, 3:7] *= 5.0
+        return noise
+
+    def _to_device(self, t):
+        """A host tensor on the model's device: from pinned memory, without
+        making the host wait, on CUDA."""
+        if t is None or self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _mesh_for(self, num_envs):
         """The mesh for an env count, or None for the unsharded path: dp the
@@ -718,51 +754,98 @@ class phys_model:
         """One forward; in train mode also computes and accumulates the
         gradients (``backward`` is a no-op, as in the JAX package). On a
         mesh (``_mesh_for(num_envs)``) the train step runs this rank's env
-        slice and accumulates the gradients summed over the ranks."""
+        slice and accumulates the gradients summed over the ranks. The
+        unsharded train step replays one captured CUDA graph
+        (``models/step_graph.py``); the rest runs eagerly. While the
+        profiler records, each forward counts ``graph.replays`` or
+        ``graph.eager_steps``."""
         with spans.span("phys_model.forward"):
             if frame_start is None:
                 frame_start = self.compute_frame_start()
             else:
                 frame_start = torch.as_tensor(
-                    np.asarray(frame_start, np.float32), device=self.device)[: self.num_envs]
+                    np.asarray(frame_start, np.float32))[: self.num_envs]
             w = self._weights_vec()
             if self.is_eval:
+                spans.count("graph.eager_steps", 1)
                 with torch.no_grad():
-                    out, aux = self._forward_pure(self.params, frame_start, self.progress, w,
-                                                  False)
+                    out, aux = self._forward_pure(self.params, self._to_device(frame_start),
+                                                  None, w, False)
                 self._store_eval_aux(aux)
                 return out
+            noise = self._draw_noise(frame_start.shape[0])
             # every tensor's gradient, frozen ones too, as jax.grad gives them
             # (``last_grads``); the update takes the trainable ones
             named = self.named_tensors()
-            tensors = [t for _, t in named]
-            leaves = [t for t in tensors if not isinstance(t, nn.Parameter)]
-
-            def grad_step(shard):
-                out, _ = self._forward_pure(self.params, frame_start, self.progress, w, True,
-                                            shard=shard)
-                with spans.span("forward.backward"):
-                    grads = torch.autograd.grad(out["total_loss"], tensors, allow_unused=True)
-                return out, [torch.zeros_like(t) if g is None else g
-                             for t, g in zip(tensors, grads)]
-
-            for t in leaves:
-                t.requires_grad_(True)
-            try:
-                out, grads = sharding.shard_train_step(
-                    grad_step, self._mesh_for(self.num_envs), named)()
-            finally:
-                for t in leaves:
-                    t.requires_grad_(False)
+            mesh = self._mesh_for(self.num_envs)
+            if self._graphed and mesh is None:
+                out, grads, norms, gnorm = self._graph_step(frame_start, noise, w, named)
+            else:
+                spans.count("graph.eager_steps", 1)
+                fs_dev, noise_dev = self._to_device(frame_start), self._to_device(noise)
+                tensors = [t for _, t in named]
+                with self._leaves_need_grad(tensors):
+                    out, grads = sharding.shard_train_step(
+                        lambda shard: self._grad_step(shard, fs_dev, noise_dev, w, tensors),
+                        mesh, named)()
+                out = {k: v.detach() for k, v in out.items()}
+                norms, gnorm = self._grad_norms(named, grads)
             self.last_grads = {n: g for (n, _), g in zip(named, grads)}
             grads = [self.last_grads[n] for n, _ in self._trainable]
-            # per-tensor norms over trainable tensors: the reference's grad
-            # queue keys are per named parameter (dp_model.py:969-975)
-            with spans.span("forward.grad_norms"):
-                norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
-                gnorm = torch.sqrt(torch.sum(norms ** 2))
             self._grad_accum.append((grads, norms, gnorm))
-            return {k: v.detach() for k, v in out.items()}
+            return out
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _leaves_need_grad(tensors):
+        """The non-module tensors require grad inside (the modules'
+        parameters always do)."""
+        leaves = [t for t in tensors if not isinstance(t, nn.Parameter)]
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            yield
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+
+    def _grad_step(self, shard, frame_start, noise, weights, tensors):
+        """The training forward and the gradient of its total loss in every
+        tensor (zeros where unused): (out, grads)."""
+        out, _ = self._forward_pure(self.params, frame_start, noise, weights, True, shard=shard)
+        with spans.span("forward.backward"):
+            grads = torch.autograd.grad(out["total_loss"], tensors, allow_unused=True)
+        return out, [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
+
+    def _grad_norms(self, named, grads):
+        """Per-tensor norms over the trainable tensors (the reference's grad
+        queue keys are per named parameter, dp_model.py:969-975) and the
+        global norm, on the device."""
+        by_name = {n: g for (n, _), g in zip(named, grads)}
+        with spans.span("forward.grad_norms"):
+            norms = torch.stack([torch.linalg.vector_norm(by_name[n])
+                                 for n, _ in self._trainable])
+            gnorm = torch.sqrt(torch.sum(norms ** 2))
+        return norms, gnorm
+
+    def _graph_step(self, frame_start, noise, weights, named):
+        """The unsharded training step through the StepGraph of its key,
+        captured anew when the key changes: (out, grads, norms, gnorm). The
+        graph's outputs are overwritten by its next replay: the losses are
+        copied out here, and gradients still waiting for an update (more
+        than one forward per update) are copied before the replay."""
+        E = frame_start.shape[0]
+        key = (E, self.frames_per_wdw, tuple(weights), noise is not None,
+               self.env.contact_mode, id(self.integrator),
+               bool(self.opts.get("ref_quirks", False)))
+        if self._graph is None or self._graph.key != key:
+            self._graph = None  # its memory goes before the next capture takes more
+            self._graph = StepGraph(self, key, weights, named, E, noise is not None)
+        if self._grad_accum:
+            self._grad_accum = [([g.clone() for g in gs], n.clone(), gn.clone())
+                                for gs, n, gn in self._grad_accum]
+        losses, grads, norms, gnorm = self._graph.step(frame_start, noise)
+        return dict(zip(self._graph.loss_keys, losses.clone().unbind(0))), grads, norms, gnorm
 
     def _store_eval_aux(self, aux):
         self.sim_trajs = aux["sim_traj"].cpu().numpy()

@@ -82,7 +82,9 @@ def se3_vec2mat(vec: torch.Tensor) -> torch.Tensor:
     mat = torch.zeros(vec.shape[:-1] + (4, 4), dtype=vec.dtype, device=vec.device)
     mat[..., :3, :3] = rmat
     mat[..., :3, 3] = vec[..., :3]
-    mat[..., 3, 3] = 1.0
+    # fill_: a Python scalar assigned into a 0-d view would be copied from
+    # the host (vec of shape (7,))
+    mat[..., 3, 3].fill_(1.0)
     return mat
 
 

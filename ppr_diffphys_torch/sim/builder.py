@@ -344,6 +344,21 @@ class ArticulationModel:
         self.contact_mode: Optional[str] = None
         self._interior_body: Optional[np.ndarray] = None
         self._interior_point: Optional[np.ndarray] = None
+        # (name, device) -> tensors built from the arrays above once
+        # (``device_table``)
+        self.device_tables: dict = {}
+
+    def device_table(self, name, device, build):
+        """``build()``'s tensors for ``device``, made once and kept under
+        ``name`` and the device: a forward then copies nothing from the host
+        (and can be captured in a CUDA graph). For tables of the joints and
+        bodies, which do not change after ``finalize()``; the contact set
+        does (``make_ground_contacts``) and is not kept here."""
+        key = (name, str(device))
+        tables = self.device_tables.get(key)
+        if tables is None:
+            tables = self.device_tables[key] = build()
+        return tables
 
     @property
     def contact_count(self) -> int:

@@ -42,85 +42,101 @@ from .builder import (
 )
 
 
-def _const(x, like, dtype=None):
-    return torch.as_tensor(
-        np.asarray(x), dtype=dtype or like.dtype, device=like.device
-    )
+def fk_tables(model: ArticulationModel, device, dtype=torch.float32) -> dict:
+    """``eval_fk``'s constant tables of ``model`` on ``device``: index
+    tables (long), joint axes, anchors, centres of mass and joint-type masks
+    (``dtype``), and the tree's levels. Built once by host-to-device copies
+    and kept on the model (``model.device_table``), so that ``eval_fk``
+    copies nothing from the host (and can be captured in a CUDA graph)."""
+    return model.device_table(("eval_fk", dtype), device,
+                              lambda: _build_fk_tables(model, device, dtype))
 
 
-def _idx(x, like):
-    return torch.as_tensor(np.asarray(x, np.int64), device=like.device)
+def _build_fk_tables(model: ArticulationModel, device, dtype) -> dict:
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    i = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+    jt = model.joint_type
+    mask = lambda jtype: f((jt == jtype).astype(np.float32))[:, None]
+    q_idx = np.clip(model.joint_q_start[:, None] + np.arange(3)[None, :], 0, model.n_q - 1)
+    qd_idx = np.clip(model.joint_qd_start[:, None] + np.arange(3)[None, :], 0, model.n_qd - 1)
+    t = dict(q_idx=i(q_idx), qd_idx=i(qd_idx), axis=f(model.joint_axis),
+             m_rev=mask(JOINT_REVOLUTE), X_p=f(model.joint_X_p), com=f(model.body_com),
+             has_compound=bool((jt == JOINT_COMPOUND).any()),
+             has_prismatic=bool((jt == JOINT_PRISMATIC).any()))
+    if t["has_compound"]:
+        t["q_off"] = f(model.joint_X_c[:, 3:7])  # (B, 4)
+        t["q_off_inv"] = t["q_off"] * f([-1.0, -1, -1, 1])
+        t["m_cmp"] = mask(JOINT_COMPOUND)
+        t["e_x"], t["e_y"], t["e_z"] = f([1.0, 0, 0]), f([0.0, 1.0, 0.0]), f([0.0, 0.0, 1.0])
+    if t["has_prismatic"]:
+        t["m_pri"] = mask(JOINT_PRISMATIC)
+
+    # tree levels: all bodies at one depth compose together
+    parent = model.joint_parent
+    depth = np.zeros(model.n_links, np.int32)
+    for b in range(model.n_links):
+        depth[b] = 0 if parent[b] < 0 else depth[parent[b]] + 1
+    levels = [np.nonzero(depth == d)[0] for d in range(depth.max() + 1)]
+    order = np.concatenate([np.asarray(l, np.int64) for l in levels])
+    pos_in_order = np.zeros(model.n_links, np.int64)
+    pos_in_order[order] = np.arange(model.n_links)
+    t["roots"] = [int(b) for b in levels[0]]
+    # per later level: its bodies, their parents, the parents' rows so far
+    t["levels"] = [(i(level), i(parent[np.asarray(level)]),
+                    i(pos_in_order[parent[np.asarray(level)]])) for level in levels[1:]]
+    t["pos"] = i(pos_in_order)
+    return t
 
 
-def _mask(model, jtype, like):
-    return _const((model.joint_type == jtype).astype(np.float32), like)[:, None]
-
-
-def _local_joint_quats(model: ArticulationModel, joint_q: torch.Tensor):
+def _local_joint_quats(model: ArticulationModel, joint_q: torch.Tensor, tb: dict):
     """Local joint rotations (..., B, 4) + prismatic offsets (..., B, 3)."""
     batch = joint_q.shape[:-1]
     B = model.n_links
-    jt = model.joint_type
 
-    q_idx = np.clip(
-        model.joint_q_start[:, None] + np.arange(3)[None, :], 0, model.n_q - 1
-    )
-    ang3 = joint_q[..., _idx(q_idx, joint_q)]  # (..., B, 3)
-    axis = _const(model.joint_axis, joint_q)  # (B, 3)
+    ang3 = joint_q[..., tb["q_idx"]]  # (..., B, 3)
+    axis = tb["axis"]  # (B, 3)
 
     q_rev = quat_from_axis_angle(axis, ang3[..., 0])  # (..., B, 4)
-    m_rev = _mask(model, JOINT_REVOLUTE, joint_q)
+    m_rev = tb["m_rev"]
     q_local = quat_identity((B,), joint_q.dtype, joint_q.device)
     q_local = q_rev * m_rev + q_local * (1.0 - m_rev)
 
-    if (jt == JOINT_COMPOUND).any():
-        q_off = _const(model.joint_X_c[:, 3:7], joint_q)  # (B, 4)
-        q_off_inv = q_off * _const([-1.0, -1, -1, 1], joint_q)
-        q_cmp = quat_mul(q_off, quat_mul(compound_to_quat(ang3), q_off_inv))
-        m_cmp = _mask(model, JOINT_COMPOUND, joint_q)
+    if tb["has_compound"]:
+        q_off = tb["q_off"]
+        q_cmp = quat_mul(q_off, quat_mul(compound_to_quat(ang3), tb["q_off_inv"]))
+        m_cmp = tb["m_cmp"]
         q_local = q_cmp * m_cmp + q_local * (1.0 - m_cmp)
 
     p_local = torch.zeros(batch + (B, 3), dtype=joint_q.dtype, device=joint_q.device)
-    if (jt == JOINT_PRISMATIC).any():
-        m_pri = _mask(model, JOINT_PRISMATIC, joint_q)
-        p_local = axis * ang3[..., 0:1] * m_pri
+    if tb["has_prismatic"]:
+        p_local = axis * ang3[..., 0:1] * tb["m_pri"]
 
     return q_local, p_local
 
 
-def _local_joint_rates(model: ArticulationModel, joint_q, joint_qd):
+def _local_joint_rates(model: ArticulationModel, joint_q, joint_qd, tb: dict):
     """Relative angular velocity of each joint in its parent-joint frame
     (..., B, 3); compound joints use the instantaneous intrinsic-XYZ axes."""
     batch = joint_q.shape[:-1]
     B = model.n_links
-    jt = model.joint_type
 
-    q_idx = np.clip(
-        model.joint_q_start[:, None] + np.arange(3)[None, :], 0, model.n_q - 1
-    )
-    qd_idx = np.clip(
-        model.joint_qd_start[:, None] + np.arange(3)[None, :], 0, model.n_qd - 1
-    )
-    ang3 = joint_q[..., _idx(q_idx, joint_q)]
-    rate3 = joint_qd[..., _idx(qd_idx, joint_q)]
-    axis = _const(model.joint_axis, joint_q)
+    ang3 = joint_q[..., tb["q_idx"]]
+    rate3 = joint_qd[..., tb["qd_idx"]]
+    axis = tb["axis"]
 
     w_local = torch.zeros(batch + (B, 3), dtype=joint_q.dtype, device=joint_q.device)
-    m_rev = _mask(model, JOINT_REVOLUTE, joint_q)
-    w_local = w_local + axis * rate3[..., 0:1] * m_rev
+    w_local = w_local + axis * rate3[..., 0:1] * tb["m_rev"]
 
-    if (jt == JOINT_COMPOUND).any():
+    if tb["has_compound"]:
         a, b = ang3[..., 0], ang3[..., 1]
-        ex = _const([1.0, 0, 0], joint_q).expand(batch + (B, 3))
+        ex = tb["e_x"].expand(batch + (B, 3))
         q0 = quat_from_axis_angle(ex, a)
-        ax1 = quat_rotate(q0, _const([0.0, 1.0, 0.0], joint_q))
+        ax1 = quat_rotate(q0, tb["e_y"])
         q1 = quat_from_axis_angle(ax1, b)
-        ax2 = quat_rotate(quat_mul(q1, q0), _const([0.0, 0.0, 1.0], joint_q))
+        ax2 = quat_rotate(quat_mul(q1, q0), tb["e_z"])
         w_cmp = ex * rate3[..., 0:1] + ax1 * rate3[..., 1:2] + ax2 * rate3[..., 2:3]
-        q_off = _const(model.joint_X_c[:, 3:7], joint_q)
-        w_cmp = quat_rotate(q_off.expand(batch + (B, 4)), w_cmp)
-        m_cmp = _mask(model, JOINT_COMPOUND, joint_q)
-        w_local = w_local + w_cmp * m_cmp
+        w_cmp = quat_rotate(tb["q_off"].expand(batch + (B, 4)), w_cmp)
+        w_local = w_local + w_cmp * tb["m_cmp"]
 
     return w_local
 
@@ -149,32 +165,21 @@ def eval_fk(
             batch + (model.n_qd,), dtype=joint_q.dtype, device=joint_q.device
         )
 
-    X_p_all = _const(model.joint_X_p, joint_q) if joint_X_p is None else joint_X_p
+    tb = fk_tables(model, joint_q.device, joint_q.dtype)
+    X_p_all = tb["X_p"] if joint_X_p is None else joint_X_p
     if X_p_all.shape[:-2] != batch:  # (B,7) or a broadcastable (..., B, 7)
         X_p_all = X_p_all.expand(batch + X_p_all.shape[-2:])
-    com_all = _const(model.body_com, joint_q) if body_com is None else body_com
+    com_all = tb["com"] if body_com is None else body_com
 
-    q_local, p_local = _local_joint_quats(model, joint_q)
-    w_rate = _local_joint_rates(model, joint_q, joint_qd)
+    q_local, p_local = _local_joint_quats(model, joint_q, tb)
+    w_rate = _local_joint_rates(model, joint_q, joint_qd, tb)
     p_local = p_local.expand(q_local.shape[:-1] + (3,))
     X_jc_all = torch.cat([p_local, q_local], -1)  # (..., B, 7)
 
-    # tree levels: all bodies at one depth compose together
-    parent = model.joint_parent
-    depth = np.zeros(model.n_links, np.int32)
-    for i in range(model.n_links):
-        depth[i] = 0 if parent[i] < 0 else depth[parent[i]] + 1
-    levels = [np.nonzero(depth == d)[0] for d in range(depth.max() + 1)]
-
     zeros3 = torch.zeros(batch + (3,), dtype=joint_q.dtype, device=joint_q.device)
 
-    order = np.concatenate([np.asarray(l, np.int64) for l in levels])
-    pos_in_order = np.zeros(model.n_links, np.int64)
-    pos_in_order[order] = np.arange(model.n_links)
-
     root_q, root_w, root_v = [], [], []
-    for i in levels[0]:
-        i = int(i)
+    for i in tb["roots"]:
         jtype = int(model.joint_type[i])
         qs = int(model.joint_q_start[i])
         qds = int(model.joint_qd_start[i])
@@ -193,14 +198,11 @@ def eval_fk(
     done_w = torch.stack(root_w, dim=-2)
     done_v = torch.stack(root_v, dim=-2)
 
-    for level in levels[1:]:
-        lvl = _idx(level, joint_q)
-        par = parent[np.asarray(level)]
-        par_pos = _idx(pos_in_order[par], joint_q)
+    for lvl, par, par_pos in tb["levels"]:
         pq = done_q[..., par_pos, :]  # (..., L, 7)
         pw = done_w[..., par_pos, :]
         pv = done_v[..., par_pos, :]
-        com_p_w = transform_point(pq, com_all[_idx(par, joint_q)])
+        com_p_w = transform_point(pq, com_all[par])
 
         X_wj = transform_mul(pq, X_p_all[..., lvl, :])
         X_wc = transform_mul(X_wj, X_jc_all[..., lvl, :])
@@ -217,7 +219,7 @@ def eval_fk(
         done_w = torch.cat([done_w, w_c], dim=-2)
         done_v = torch.cat([done_v, v_c], dim=-2)
 
-    pos = _idx(pos_in_order, joint_q)
+    pos = tb["pos"]
     body_q = done_q[..., pos, :]
     body_qd = torch.cat([done_w[..., pos, :], done_v[..., pos, :]], dim=-1)
     return body_q, body_qd

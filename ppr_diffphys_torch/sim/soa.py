@@ -158,10 +158,14 @@ def xp_planes(model, joint_X_p) -> dict:
     (3,B,L), the arm from the parent's centre of mass that the joint sweep
     rotates into the world frame. Differentiable in ``joint_X_p``;
     ``com_parent`` is the model's, a constant."""
-    parent = model.joint_parent
-    parent_safe = np.where(parent >= 0, parent, 0)
-    com_parent = torch.as_tensor(np.ascontiguousarray(model.body_com[parent_safe].T[:, :, None]),
-                                 dtype=torch.float32, device=joint_X_p.device)
+    dev = joint_X_p.device
+
+    def build():
+        parent_safe = np.where(model.joint_parent >= 0, model.joint_parent, 0)
+        return torch.as_tensor(np.ascontiguousarray(model.body_com[parent_safe].T[:, :, None]),
+                               dtype=torch.float32, device=dev)
+
+    com_parent = model.device_table("com_parent", dev, build)
     xp = joint_X_p.to(torch.float32)
     if xp.ndim == 2:  # (B,7) -> lane 1
         xp_t, xp_q = xp[:, 0:3].T[:, :, None], xp[:, 3:7].T[:, :, None]
@@ -171,18 +175,23 @@ def xp_planes(model, joint_X_p) -> dict:
     return {n: t.contiguous() for n, t in planes.items()}
 
 
+def dof_index_table(model, device) -> torch.Tensor:
+    """``dof_index(model)`` as a long tensor on ``device``, copied once
+    (``model.device_table``)."""
+    return model.device_table("dof_index", device, lambda: torch.as_tensor(
+        dof_index(model), dtype=torch.long, device=device))
+
+
 def traced_planes(model, params: SimParams, didx=None) -> dict:
     """Per-call parameters in plane layout (pallas_soa.py:349-389):
     ``gains`` (2,3,B,1|E), ``inv_m`` (B,1|E), ``inertia`` and
     ``inv_inertia`` (3,3,B,1|E), plus the ``XP_NAMES`` anchor planes when
     ``params.joint_X_p`` is set. Shared params (``joint_target_ke`` (n_qd,))
     give lane-1 planes, per-env params ((E, n_qd)) lane-E planes. ``didx``:
-    ``dof_index(model)`` on the parameters' device (``PackedConsts.dof_index``);
-    built here when None, by a host-to-device copy that waits for the
-    stream."""
+    ``dof_index(model)`` on the parameters' device; by default the model's
+    (``dof_index_table``)."""
     if didx is None:
-        didx = torch.as_tensor(dof_index(model), dtype=torch.long,
-                               device=params.joint_target_ke.device)
+        didx = dof_index_table(model, params.joint_target_ke.device)
     ke, kd = params.joint_target_ke, params.joint_target_kd
     if ke.ndim == 1:
         gains = torch.stack([ke[didx].T, kd[didx].T])[..., None]  # (2,3,B,1)
@@ -256,14 +265,6 @@ class PackedConsts:
                                         "c_off")] + [int(c["adj"].numel())]
             self._by_dev[key] = (c, args)
         return self._by_dev[key][1]
-
-    def dof_index(self, dev) -> torch.Tensor:
-        """``dof_index(model)`` as a long tensor on ``dev``, copied once."""
-        key = "dof_index " + str(dev)
-        if key not in self._by_dev:
-            self._by_dev[key] = torch.as_tensor(dof_index(self.model), dtype=torch.long,
-                                                device=dev)
-        return self._by_dev[key]
 
 
 def envs_per_cta(E: int) -> int:
@@ -404,8 +405,7 @@ class SoaWindow:
         E, B, F = state.body_q.shape[0], model.n_links, self.F
         lib = _kernel_lib()
         check_bodies(KERNEL, B, lib.soa_window_max_bodies())
-        planes = traced_planes(model, params,
-                               self._consts.dof_index(params.joint_target_ke.device))
+        planes = traced_planes(model, params)
         check_inputs(KERNEL, model, state, joint_targets, joint_acts, joint_targets.shape[0],
                      planes.values())
         bq, bqd = state.body_q.contiguous(), state.body_qd.contiguous()

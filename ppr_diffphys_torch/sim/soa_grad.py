@@ -112,7 +112,10 @@ class DiffInterval:
     counted in ``self.launches``; while the profiler records, each call is
     the span ``rollout.interval`` and K3 counts the (env, substep, contact)
     triples it processes (``k3.contact_triples``) and those that penetrate
-    (``k3.active_contacts``)."""
+    (``k3.active_contacts``). With ``count_sink`` set (a
+    :class:`ContactCounts`), K3 adds both counts there instead, whether the
+    profiler records or not: a captured CUDA graph replays that sum
+    (``models/step_graph.py``)."""
 
     def __init__(self, integrator: SemiImplicitIntegrator, dt: float, substeps: int,
                  with_res: bool = False, with_act: bool = False, with_xp: bool = False):
@@ -126,6 +129,7 @@ class DiffInterval:
         self.names = TRACED_NAMES + (XP_NAMES if self.with_xp else ())
         self._consts = PackedConsts(self.model)
         self._contacts = {}  # device -> contact_tables(model, device), for the K3 counters
+        self.count_sink = None
         self.launches = {KERNEL_FWD: 0, KERNEL_BWD: 0, KERNEL_REDUCE: 0}
 
     def __call__(self, bq, bqd, tgt, act, res, *planes):
@@ -242,12 +246,17 @@ class DiffInterval:
             ptr(dtgt), ptr(dact), ptr(dres), ptr(dplanes), *tail, envs_per_cta(E), stream)
         kbuild.check(status, KERNEL_BWD)
         self.launches[KERNEL_BWD] += 1
-        if spans.recording():
+        sink = self.count_sink
+        if sink is not None or spans.recording():
             if dev not in self._contacts:
                 self._contacts[dev] = contact_tables(self.model, dev)
-            spans.count("k3.contact_triples", self.S * E * self.model.contact_count)
-            spans.count("k3.active_contacts",
-                        active_contact_count(self.model, sstate, self._contacts[dev]))
+            triples = self.S * E * self.model.contact_count
+            active = active_contact_count(self.model, sstate, self._contacts[dev])
+            if sink is not None:
+                sink.add(triples, active)
+            else:
+                spans.count("k3.contact_triples", triples)
+                spans.count("k3.active_contacts", active)
 
         shared = [not (p.shape[-1] == E and E > 1) for p in pl]
         summed = None
@@ -264,6 +273,24 @@ class DiffInterval:
             grads.append(g.reshape(p.shape))
             o += r
         return dbq, dbqd, dtgt, dact, dres, grads
+
+
+class ContactCounts:
+    """K3's contact counters summed where no profiler has to record
+    (``DiffInterval.count_sink``): ``triples`` on the host, ``active`` a 0-d
+    int64 tensor on the device."""
+
+    def __init__(self, device):
+        self.triples = 0
+        self.active = torch.zeros((), dtype=torch.int64, device=device)
+
+    def reset(self):
+        self.triples = 0
+        self.active.zero_()
+
+    def add(self, triples: int, active: torch.Tensor):
+        self.triples += triples
+        self.active += active
 
 
 def make_diff_interval(integrator: SemiImplicitIntegrator, dt: float, substeps: int,

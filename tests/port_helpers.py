@@ -180,10 +180,10 @@ def a1_train_run(logroot, envs=TRAIN_E, **opts):
     return dict(model=m, losses=losses, params=params, init=init, grads0=grads0)
 
 
-def lab4d_interface(logroot, **opts):
+def lab4d_interface(logroot, device="cpu", **opts):
     """The port's lab4d interface on a1 (its calf links as kp links) over two
     videos (offsets [0, 12, 30]), 4 substeps a frame, seeded fields moved off
-    their identity start."""
+    their identity start, on ``device``."""
     import torch
     from ppr_diffphys_torch.data.robot import URDFRobot
     from ppr_diffphys_torch.models import fields, interface
@@ -199,7 +199,7 @@ def lab4d_interface(logroot, **opts):
                    phys_vid=[0, 1], noise_std=0.0, **opts)
     md = dict(scene_field=(scn, scn.init_params), object_field=(obj, obj.init_params),
               intrinsics=(intr, intr.init_params), frame_interval=4 * 5e-4, frame_info=None)
-    tm = interface.phys_interface(o, md, device="cpu")
+    tm = interface.phys_interface(o, md, device=device)
     tm.robot.urdf.kp_links = ["FR_calf", "FL_calf", "RR_calf", "RL_calf"]
     tree = tm.state_np()
     rng = np.random.RandomState(3)

@@ -637,3 +637,160 @@ def test_comm_helpers_under_nccl(tmp_path):
     finally:
         dist.destroy_process_group()
         sharding._mesh_cache.clear()
+
+
+# ---- the training step as one CUDA graph (models/step_graph.py) -------------
+def _train_model(tmp, E, F, graphed=True, noise_std=0.002):
+    from ppr_diffphys_torch.data.amp_loader import DataLoader
+    from ppr_diffphys_torch.models.phys_model import phys_model
+
+    o = H.serve_opts(logroot=str(tmp), num_rounds=1, iters_per_round=10, noise_std=noise_std)
+    m = phys_model(dict(o), DataLoader(o), device="cuda")
+    m.reinit_envs(E, frames_per_wdw=F, is_eval=False)
+    m._graphed = graphed
+    return m
+
+
+def _counted(fn):
+    """``fn()`` under the CPU profiler: the program's counters."""
+    from torch.profiler import ProfilerActivity, profile
+    from ppr_diffphys_torch.utils import spans
+
+    spans.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            fn()
+        return spans.summary()["counters"]
+    finally:
+        spans.reset()
+
+
+@pytest.mark.cuda
+def test_graphed_training_steps_equal_eager(tmp_path):
+    """At 8 envs x 4 frames, three training steps replayed from one captured
+    graph against three eager steps from the same seed (frame starts and
+    noise drawn alike). The forward is deterministic: from the same
+    parameters the first step's losses and K3 contact counters are equal bit
+    for bit. The gradient is not bitwise repeatable even eagerly: two eager
+    runs of the same step already differ by ~1e-10 in the time-MLPs'
+    instance embeddings (CUDA's embedding backward sums the rows of one
+    index in a run-dependent order), and the parameters then part by
+    rounding. So every gradient is held to 1e-5 of its tensor's largest
+    entry on the first step and to 1e-3 after it, the later losses to 1e-4
+    relative and the parameters to 1e-4 of each tensor's largest entry."""
+    _need_gpu()
+    eager = _train_model(tmp_path / "a", 8, 4, graphed=False)
+    graphed = _train_model(tmp_path / "b", 8, 4)
+
+    def close(x, y, tol):
+        return bool((x - y).abs().max() <= tol * max(float(x.abs().max()), 1e-12))
+
+    for i in range(3):
+        eager.progress = graphed.progress = 0.1 * i
+        if i == 0:  # K3's counters: the eager step's and the graph's sum
+            box = {}
+            ca = _counted(lambda: box.update(a=eager.forward()))
+            cb = _counted(lambda: box.update(b=graphed.forward()))
+            a, b = box["a"], box["b"]
+            for k in ("k3.contact_triples", "k3.active_contacts"):
+                assert ca[k] == cb[k], (k, ca[k], cb[k])
+            assert cb["graph.captures"] == 1 and cb["graph.replays"] == 1
+            assert ca["graph.eager_steps"] == 1
+            for k in a:
+                assert torch.equal(a[k], b[k]), (k, float(a[k]), float(b[k]))
+        else:
+            a, b = eager.forward(), graphed.forward()
+            for k in a:
+                assert close(a[k], b[k], 1e-4), (i, k, float(a[k]), float(b[k]))
+        for k, g in eager.last_grads.items():
+            assert close(g, graphed.last_grads[k], 1e-5 if i == 0 else 1e-3), (i, k)
+        eager.update()
+        graphed.update()
+        for (n, x), (_, y) in zip(eager.named_tensors(), graphed.named_tensors()):
+            assert close(x, y, 1e-4), (i, n)
+    assert graphed._graph.graph is not None and eager._graph is None
+    # the warm-up's launches and the three replays', one K2 and K3 an interval
+    di = graphed._interval()
+    assert di.launches == {k: 4 * 3 for k in eager._interval().launches}
+
+
+@pytest.mark.cuda
+def test_replayed_step_makes_no_sync(tmp_path):
+    """A replayed training forward synchronizes nothing: no blocking copy,
+    no host read (torch's sync debug mode raises on one)."""
+    _need_gpu()
+    m = _train_model(tmp_path, 8, 4)
+    m.forward()
+    m.update()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = m.forward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    m.update()
+    assert torch.isfinite(out["total_loss"]).item()
+
+
+@pytest.mark.cuda
+def test_graph_recaptures_when_its_key_changes(tmp_path):
+    """A new (envs, frames) captures anew; an eval forward in between runs
+    eagerly and leaves the training graph to be replayed again; the K3
+    counters are counted at each replay."""
+    _need_gpu()
+    m = _train_model(tmp_path, 8, 4)
+    m.opts["contact_fallback"] = False  # the eval keeps the contact set (and the key)
+
+    def steps():
+        for _ in range(2):
+            m.forward()
+            m.update()
+        m.reinit_envs(1, frames_per_wdw=m.total_frames, is_eval=True)
+        m.forward()
+        m.reinit_envs(8, frames_per_wdw=4, is_eval=False)
+        m.forward()
+        m.update()
+        m.reinit_envs(4, frames_per_wdw=3, is_eval=False)
+        m.forward()
+        m.update()
+
+    c = _counted(steps)
+    assert c["graph.captures"] == 2 and c["graph.replays"] == 4
+    assert c["graph.eager_steps"] == 1
+    S, C = m.steps_per_fr_interval, m.env.contact_count
+    assert c["k3.contact_triples"] == 3 * (3 * S * 8 * C) + 2 * S * 4 * C
+    assert 0 <= c["k3.active_contacts"] <= c["k3.contact_triples"]
+
+
+@pytest.mark.cuda
+def test_lab4d_and_mesh_steps_run_eagerly(tmp_path):
+    """The lab4d interface's step and a step on a mesh (a world-1 gloo
+    group; its collectives are not captured) run eagerly and count
+    ``graph.eager_steps``; the mesh step gives the graphed step's losses."""
+    _need_gpu()
+    import torch.distributed as dist
+    from ppr_diffphys_torch.parallel import sharding
+
+    tm = H.lab4d_interface(str(tmp_path / "lab4d"), device="cuda")
+    tm.reinit_envs(H.LAB4D_E, frames_per_wdw=H.LAB4D_F, is_eval=False)
+    c = _counted(lambda: (tm.forward(), tm.update()))
+    assert c.get("graph.eager_steps") == 1 and "graph.captures" not in c
+    assert tm._graph is None
+
+    graphed = _train_model(tmp_path / "a", 8, 4)
+    want = graphed.forward()
+    dist.init_process_group("gloo", init_method="file://" + str(tmp_path / "store"),
+                            rank=0, world_size=1)
+    try:
+        m = _train_model(tmp_path / "b", 8, 4)
+        mesh = sharding.make_mesh({"dp": 1})
+        m._mesh_for = lambda n: mesh
+        box = {}
+        c = _counted(lambda: box.update(out=m.forward()))
+        assert c.get("graph.eager_steps") == 1 and "graph.captures" not in c
+        assert m._graph is None
+        for k, v in want.items():
+            assert torch.equal(v, box["out"][k]), k
+    finally:
+        dist.destroy_process_group()
+        sharding._mesh_cache.clear()

@@ -275,8 +275,11 @@ def cuda_device():
 def test_k3_span_and_counters_on_the_card(cuda_device, tmp_path):
     """K3's span, opened on autograd's device thread, nests under
     ``forward.backward``; the counters: every K3 launch's E x S x C triples,
-    of which the penetrating ones a share."""
+    of which the penetrating ones a share. On the eager step: a replayed
+    CUDA graph runs no span (tests/test_torch_cuda.py holds the counters of
+    the graphed step)."""
     m = _a1_model(cuda_device, tmp_path)
+    m._graphed = False
     _steps(m, 1)
     spans.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
