@@ -119,10 +119,11 @@ def interface_params_from_jax(np_tree):
 
 def remat(fn, *args):
     """fn(*args), its intermediates recomputed in the backward pass instead
-    of kept (activation checkpointing) while autograd records: the fields'
-    and delta MLPs run at every substep of every env (389k rows at 512 envs x
-    24 frames), where each 256-wide trunk would keep ~5k floats per row of
-    layer inputs and activations. The values are the same."""
+    of kept (activation checkpointing) while autograd records: the proxy's
+    joint-angle MLPs run at every substep of every env (389k rows at 512
+    envs x 24 frames), the fields and the other MLPs at every frame, where
+    each 256-wide trunk would keep ~5k floats per row of layer inputs and
+    activations. The values are the same."""
     if torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
@@ -197,6 +198,7 @@ class phys_interface(phys_model):
     # the step keeps its activation checkpointing, field gathers and host
     # reads: it runs eagerly
     step_graph = False
+    FRAME_KEYS = phys_model.FRAME_KEYS + ("world2view", "ks")
 
     def __init__(self, opts, model_dict, dt=5e-4, copy_weights=False, device=None):
         self.copy_weights = copy_weights
@@ -390,21 +392,49 @@ class phys_interface(phys_model):
             joint_X_p=joint_X_p.reshape(E, S, -1, 7)[:, 0],
         )
 
-    def get_batch_input(self, params, steps_fr):
-        params = self.params if params is None else params
+    def _frame_inputs(self, params, frames):
+        """The entries that the step reads at the frames alone, queried at
+        ``frames`` (E, F): the ground truth, the proxy's root and
+        ``vel_mlp``."""
+        E, F = frames.shape
+        flat = frames.reshape(-1)
+        batch = self.query_kinematics_groundtruth(params, frames)
+        state_qd = remat(lambda f: self._mlp("vel_mlp", f), flat).reshape(E, F, -1)
+        batch.update(
+            queried_q=self._proxy_root(params, "kinematics_proxy", flat).reshape(E, F, -1),
+            queried_qd=state_qd)
+        return batch
+
+    def _substep_inputs(self, params, steps_fr):
+        """The entries that the step reads at every substep of ``steps_fr``
+        (E, S): the proxy's joint angles and the zeroed torque and
+        residual-force MLPs."""
         E, S = steps_fr.shape
-        batch = self.query_kinematics_groundtruth(params, steps_fr)
         flat = steps_fr.reshape(-1)
         mlp = lambda name: remat(lambda f: self._mlp(name, f), flat)
         torques = mlp("torque_mlp").reshape(E, S, -1) * 0.0
         res_f = mlp("residual_f_mlp").reshape(E, S, -1, 6)
         res_f = torch.cat([res_f[..., :3] * 10.0, res_f[..., 3:]], -1) * 0.0
-        state_qd = mlp("vel_mlp").reshape(E, S, -1)
-        batch.update(
-            queried_q=self._proxy_root(params, "kinematics_proxy", flat).reshape(E, S, -1),
+        return dict(
             queried_ja=self._proxy_ja(params, "kinematics_proxy", flat).reshape(E, S, -1),
-            queried_qd=state_qd, torques=torques, res_f=res_f,
-        )
+            torques=torques, res_f=res_f)
+
+    def get_batch_input(self, params, steps_fr):
+        params = self.params if params is None else params
+        batch = self._frame_inputs(params, steps_fr)
+        batch.update(self._substep_inputs(params, steps_fr))
+        return batch
+
+    def _step_inputs(self, params, steps_fr):
+        """The step's inputs with the ``FRAME_KEYS`` entries queried at the
+        frame boundaries alone, where the step reads them, and the rest at
+        every substep; the time-MLPs' rows counted as ``inputs.rows_frame``
+        and ``inputs.rows_substep``. The rows left out took no part in the
+        losses."""
+        with spans.rows("inputs.rows_frame"):
+            batch = self._frame_inputs(params, steps_fr[:, self._frame2step_t])
+        with spans.rows("inputs.rows_substep"):
+            batch.update(self._substep_inputs(params, steps_fr))
         return batch
 
     # -- distillation (reference :305-325 + dp_model.py:800-804) -------
@@ -472,12 +502,12 @@ class phys_interface(phys_model):
     def _extend_aux(self, aux, params, batch, steps_fr, sim_position):
         """Eval observables: the vis cameras (reference dp_interface.py:
         233-235) and the distilled trajectory."""
-        f2s = torch.as_tensor(self.frame2step, dtype=torch.long, device=steps_fr.device)
-        aux["target_q_vis"] = batch["target_q"][0, f2s]
-        aux["world2view_vis"] = batch["world2view"][0, f2s]
-        aux["ks_vis"] = batch["ks"][0, f2s]
+        aux["target_q_vis"] = batch["target_q"][0]
+        aux["world2view_vis"] = batch["world2view"][0]
+        aux["ks_vis"] = batch["ks"][0]
         if float(self.opts.get("pos_distill_wt", 0.0)) > 0.0:
-            aux["distilled_traj"] = self._distilled_body_q(params, steps_fr[:1, f2s])[0]
+            aux["distilled_traj"] = self._distilled_body_q(
+                params, steps_fr[:1, self._frame2step_t])[0]
         return aux
 
     def _store_eval_aux(self, aux):

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from ..parallel.sharding import tp_linear
+from ..utils import spans
 
 
 def posenc(x: torch.Tensor, n_freqs: int, alpha: Optional[float] = None) -> torch.Tensor:
@@ -147,7 +148,8 @@ class TimeEmbedding(nn.Module):
 class _TimeTrunk(nn.Module):
     """Time embedding -> D-layer ReLU trunk with skip concats and a final
     ReLU layer (the trunk TimeMLP and CameraMLP share). Defaults D=5,
-    W=256, skips=(1,2,3,4)."""
+    W=256, skips=(1,2,3,4). Each evaluation counts its rows
+    (``spans.count_rows``)."""
 
     def __init__(self, num_freq_t: int, num_inst: int, D: int = 5, W: int = 256,
                  skips: Sequence[int] = (1, 2, 3, 4)):
@@ -171,6 +173,7 @@ class _TimeTrunk(nn.Module):
                     m.weight.normal_(0.0, 1.0, generator=generator)
 
     def features(self, t_sample: torch.Tensor, inst_id: torch.Tensor) -> torch.Tensor:
+        spans.count_rows(t_sample.numel())
         x = self.time_embedding(t_sample, inst_id)
         out = x
         for i in range(self.D):

@@ -20,11 +20,13 @@ without gradient through ``sim/soa.py:SoaWindow`` (K1 on CUDA).
 
 The lab4d coupling (``models/interface.py:phys_interface``) subclasses it
 through the same hooks as the JAX package: ``preset_data``/``_finish_data``,
-``get_batch_input`` with a per-env ``joint_X_p`` (live joint anchors, which
-FK, the initial state and the rollout honour; the rollout takes them as the
-interval kernels' ``with_xp`` planes, and the eval forward then chains the
-no-gradient interval instead of the window, which has no anchor planes),
-``_distill_rows``, ``_extend_aux`` and ``get_camera``.
+``get_batch_input`` and the step's ``_step_inputs`` (which queries the
+per-frame inputs at the frame boundaries alone) with a per-env ``joint_X_p``
+(live joint anchors, which FK, the initial state and the rollout honour;
+the rollout takes them as the interval kernels' ``with_xp`` planes, and the
+eval forward then chains the no-gradient interval instead of the window,
+which has no anchor planes), ``_distill_rows``, ``_extend_aux`` and
+``get_camera``.
 
 Multi-GPU (``parallel/sharding.py``): ``opts["ngpu"]`` budgets the ranks
 of the ``torch.distributed`` world (-1 or 0: all) and ``opts["mesh_shape"]``
@@ -136,6 +138,9 @@ class phys_model:
     # whether the unsharded training step may replay as one CUDA graph
     # (models/step_graph.py); the lab4d interface's step stays eager
     step_graph = True
+    # the inputs that the step reads only at the frame boundaries
+    FRAME_KEYS = ("target_q", "target_qd", "target_ja", "target_jad", "queried_q",
+                  "queried_qd")
 
     def __init__(self, opts, dataloader, dt=5e-4, device=None):
         self.opts = opts
@@ -456,6 +461,19 @@ class phys_model:
             queried_qd=state_qd, torques=torques, res_f=res_f,
         )
 
+    def _step_inputs(self, params, steps_fr):
+        """The training and eval step's inputs over the window ``steps_fr``
+        (E, S): the ``FRAME_KEYS`` entries at the frame boundaries, (E, F);
+        ``queried_ja``, ``torques`` and ``res_f`` at every substep, (E, S);
+        the lab4d interface's per-env ``joint_X_p``. Here
+        ``get_batch_input`` at every substep, its time-MLPs' rows counted as
+        ``inputs.rows_substep``, then the frame rows."""
+        with spans.rows("inputs.rows_substep"):
+            batch = self.get_batch_input(params, steps_fr)
+        f2s = self._frame2step_t
+        batch.update({k: batch[k][:, f2s] for k in self.FRAME_KEYS})
+        return batch
+
     def get_foot_height(self, body_q):
         """Min collision-mesh height (reference dp_model.py:574-579)."""
         verts, vbody = self._foot_verts, self._foot_vbody
@@ -571,14 +589,14 @@ class phys_model:
         outseq = (vidid[:, :1] - vidid) != 0
 
         with spans.span("forward.inputs"):
-            batch = self.get_batch_input(params, steps_fr)
+            batch = self._step_inputs(params, steps_fr)
         # the lab4d interface's per-env joint anchors (E, B, 7), or None
         xp = batch.get("joint_X_p")
-        stk = lambda a, b: torch.stack([a[:, f2s], b[:, f2s]], 0)
+        stk = lambda a, b: torch.stack([a, b], 0)
         with spans.span("forward.fk"):
             both_position, both_velocity = self.fk_pos_vel(
                 stk(batch["target_q"], batch["queried_q"]),
-                stk(batch["target_ja"], batch["queried_ja"]),
+                stk(batch["target_ja"], batch["queried_ja"][:, f2s]),
                 stk(batch["target_qd"], batch["queried_qd"][..., :6]),
                 stk(batch["target_jad"], batch["queried_qd"][..., 6:]),
                 joint_X_p=None if xp is None else xp[None, :, None],  # over (2, E, F)
@@ -586,7 +604,8 @@ class phys_model:
         target_position, queried_position = both_position[0], both_position[1]
         queried_velocity = both_velocity[1]
 
-        # initial state (+ annealed noise, reference dp_model.py:700-712)
+        # initial state (+ annealed noise, reference dp_model.py:700-712);
+        # the first frame row is substep 0
         q_init = torch.cat([batch["queried_q"][:, 0], batch["queried_ja"][:, 0]], -1)
         if noise is not None:
             q_init = q_init + noise[envs]

@@ -10,6 +10,11 @@
 - ``count(name, value)``: adds a Python number, or a 0-d device tensor on
   the device (read once, in ``summary()``: a counter never makes the host
   wait while the program runs).
+- ``rows(name)``: a context manager; while it is open on the calling
+  thread, ``count_rows(n)`` (each time-MLP evaluation, ``models/mlp.py``,
+  with its row count) adds ``n`` to the counter ``name``. A recompute in
+  the backward pass (activation checkpointing) runs after it closed and
+  counts nothing.
 - ``summary()``: per span name ``calls``, ``host_ms`` (total), ``self_ms``
   (total less what its child spans cover), ``parent`` and ``roots`` (the
   distinct root ids it was seen under); every counter; the raw spans kept
@@ -68,6 +73,7 @@ class Recorder:
         self.recording = recording or torch._C._autograd._profiler_enabled
         self.max_raw = int(max_raw)
         self._lock = threading.Lock()
+        self._rows = threading.local()  # .name: the open rows counter
         self._stacks = {}  # thread id -> its open spans, innermost last
         self._next_root = 0
         self.reset()
@@ -95,6 +101,25 @@ class Recorder:
                 self._dev[name] = v if prev is None else prev + v
             else:
                 self._counts[name] = self._counts.get(name, 0) + value
+
+    def rows(self, name):
+        if not self.recording():
+            return _NOOP
+        return self._rows_open(name)
+
+    @contextlib.contextmanager
+    def _rows_open(self, name):
+        outer = getattr(self._rows, "name", None)
+        self._rows.name = name
+        try:
+            yield
+        finally:
+            self._rows.name = outer
+
+    def count_rows(self, n):
+        name = getattr(self._rows, "name", None)
+        if name is not None:
+            self.count(name, n)
 
     def _enclosing(self, tid):
         """The open spans that a span opened on thread ``tid`` nests in: the
@@ -190,6 +215,8 @@ _recorder = Recorder()
 recording = _recorder.recording
 span = _recorder.span
 count = _recorder.count
+rows = _recorder.rows
+count_rows = _recorder.count_rows
 summary = _recorder.summary
 reset = _recorder.reset
 raw = _recorder.raw

@@ -180,16 +180,16 @@ def a1_train_run(logroot, envs=TRAIN_E, **opts):
     return dict(model=m, losses=losses, params=params, init=init, grads0=grads0)
 
 
-def lab4d_interface(logroot, device="cpu", **opts):
+def lab4d_interface(logroot, device="cpu", offsets=(0, 12, 30), **opts):
     """The port's lab4d interface on a1 (its calf links as kp links) over two
-    videos (offsets [0, 12, 30]), 4 substeps a frame, seeded fields moved off
+    videos (frame ``offsets``), 4 substeps a frame, seeded fields moved off
     their identity start, on ``device``."""
     import torch
     from ppr_diffphys_torch.data.robot import URDFRobot
     from ppr_diffphys_torch.models import fields, interface
     from ppr_diffphys_torch.utils.config import build_opts
 
-    offsets = [0, 12, 30]
+    offsets = list(offsets)
     g = torch.Generator().manual_seed(0)
     obj = fields.ObjectField(offsets, URDFRobot(A1_URDF), g)
     scn = fields.CameraField(offsets, g, name="scene_field")

@@ -8,11 +8,14 @@ port is installed:
 (``--noconftest`` skips tests/conftest.py, which configures jax.)
 """
 
+from types import MethodType
+
 import numpy as np
 import pytest
 import torch
 
 from ppr_diffphys_torch.csrc import build as kbuild
+from ppr_diffphys_torch.models.phys_model import phys_model
 from ppr_diffphys_torch.sim import integrator as tint
 from ppr_diffphys_torch.sim import soa, soa_grad, synthetic
 import ppr_diffphys_torch.sim.builder as tbuilder
@@ -794,3 +797,54 @@ def test_lab4d_and_mesh_steps_run_eagerly(tmp_path):
     finally:
         dist.destroy_process_group()
         sharding._mesh_cache.clear()
+
+
+# losses (relative), the median tensor's gradient and every tensor's gradient
+# (each over its tensor's largest entry), frame-row against full-row inputs
+TOL_LOSS, TOL_GRAD_MEDIAN, TOL_GRAD = 1e-6, 1e-5, 1e-2
+
+
+@pytest.mark.cuda
+def test_lab4d_frame_row_inputs_match_full_rows_on_the_card(tmp_path):
+    """At 64 envs x 24 frames over two videos, one lab4d training forward
+    from the frame-row inputs (``phys_interface._step_inputs``) against one
+    from every substep row (``phys_model._step_inputs``, the imitation
+    model's hook: ``get_batch_input`` cut to the frame rows): the losses
+    and every tensor's gradient. The rows the full-row hook adds give exact
+    zeros, but the card's matrix products pick other kernels at 1,536 rows
+    than at 5,952, so the per-frame inputs differ by rounding, and 92
+    substeps of stiff contacts carry that into the gradients that reach the
+    PD gains and masses through the rollout alone. Measured on the card:
+    losses 8.5e-8, the median tensor 3.0e-7, the worst (``target_kd``)
+    9.7e-4, where two runs of one hook differ by at most 7.8e-7 (the
+    embedding backward's order). On the CPU a rounding-size nudge of the
+    same inputs alone (x (1 + 2**-24 N(0, 1))) moves ``target_kd``'s
+    gradient by up to 1.6e-3. A row read from the wrong place moves the
+    losses by orders of magnitude more than TOL_LOSS."""
+    _need_gpu()
+    E, F = 64, 24
+    tm = H.lab4d_interface(str(tmp_path), device="cuda", offsets=(0, 40, 88))
+    tm.reinit_envs(E, frames_per_wdw=F, is_eval=False)
+    starts = np.r_[np.arange(32) % 17, 40 + np.arange(32) % 25].astype(np.float32)
+    runs = []
+    for hook in (None, MethodType(phys_model._step_inputs, tm)):
+        if hook is not None:
+            tm._step_inputs = hook
+        try:
+            out = tm.forward(frame_start=starts)
+        finally:
+            tm.__dict__.pop("_step_inputs", None)
+        runs.append((out, {k: g.clone() for k, g in tm.last_grads.items()}))
+    (out, grads), (want_out, want_grads) = runs
+
+    def gap(x, y):
+        return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+
+    for k in out:
+        assert gap(out[k], want_out[k]) <= TOL_LOSS, (k, float(out[k]), float(want_out[k]))
+    assert float(out["loss_pos_distill"]) > 0
+    assert set(grads) == set(want_grads) == {n for n, _ in tm.named_tensors()}
+    gaps = {k: gap(g, want_grads[k]) for k, g in grads.items()}
+    assert float(np.median(list(gaps.values()))) <= TOL_GRAD_MEDIAN
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] <= TOL_GRAD, (worst, gaps[worst])

@@ -211,6 +211,25 @@ def test_counters_raw_cap_and_reset():
     assert off.summary()["spans"] == {} and off.summary()["counters"] == {}
 
 
+def test_rows_count_inside_their_context_on_their_thread():
+    rec = spans.Recorder(recording=lambda: True)
+    rec.count_rows(7)  # no rows counter open
+    with rec.rows("inputs.rows_frame"):
+        rec.count_rows(3)
+        with rec.rows("inputs.rows_substep"):
+            rec.count_rows(10)
+        rec.count_rows(4)
+        other = threading.Thread(target=rec.count_rows, args=(100,))
+        other.start()
+        other.join()
+    rec.count_rows(5)
+    assert rec.summary()["counters"] == {"inputs.rows_frame": 7, "inputs.rows_substep": 10}
+    off = spans.Recorder(recording=lambda: False)
+    with off.rows("inputs.rows_frame"):
+        off.count_rows(3)
+    assert off.summary()["counters"] == {}
+
+
 # ---- the per-layer readers ------------------------------------------------
 def _summary(steps=4):
     sp = lambda ms, parent, roots=steps: dict(calls=roots, host_ms=ms, self_ms=ms,
