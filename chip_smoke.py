@@ -1093,7 +1093,7 @@ def lab4d_main_path(dev, sub_expect):
                                                   if o else half))
                          for o in offsets[:2]]).astype(np.float32)
     outs, bits = {}, {}
-    key = ("interval", id(tm.integrator), sub, True)
+    key = ("interval", sub, True)
     kernel_di = tm._kernels[key]
     lin = LinearizedTracked(kernel_di)
     for name, fn in (("kernels", BranchTracked(kernel_di, True)),

@@ -16,7 +16,9 @@ over their kernels) and writes the spans' and counters' summary beside it
 defaults, plus ``--device`` (default cuda; ``--device cpu`` runs the plain
 PyTorch versions of the kernels) and ``--dist_url``. Left out: the TPU
 engine and tiling flags (``phys_engine``, ``eval_engine``, ``soa_e_tile``,
-``soa_ksub``, ``rollout_unroll``); ``ckpt_backend`` (orbax is a JAX library;
+``soa_ksub``, ``rollout_unroll``); ``soa_with_res`` and ``soa_with_act``
+(residual forces and joint activations are zero, as in the reference, and
+no rollout takes them); ``ckpt_backend`` (orbax is a JAX library;
 checkpoints are pickles).
 
 Multi-GPU, one process per card (``parallel/sharding.py``):
@@ -88,10 +90,6 @@ def parse_args(argv=None) -> dict:
         help="render per-round videos (needs cv2)")
     add("--seed", type=int, default=0, help="rng seed")
     add("--contact_mode", default="hull", help="hull | all | hull:<margin>")
-    add("--soa_with_res", action=argparse.BooleanOptionalAction, default=False,
-        help="give the interval kernels residual forces (zero in the reference)")
-    add("--soa_with_act", action=argparse.BooleanOptionalAction, default=False,
-        help="give the interval kernels joint activations (zero in the reference)")
     add("--hull_fallback_margin", type=float, default=3e-3,
         help="interior-vertex penetration (m) that triggers the 'all' fallback")
     add("--contact_fallback", action=argparse.BooleanOptionalAction, default=True,

@@ -80,7 +80,7 @@ from .mlp import (
     timemlp_params_from_jax,
     timemlp_params_to_jax,
 )
-from .step_graph import StepGraph
+from .step_graph import StepGraph, to_device
 
 MLP_NAMES = ("root_pose_mlp", "joint_angle_mlp", "vel_mlp", "torque_mlp",
              "residual_f_mlp")
@@ -542,23 +542,18 @@ class phys_model:
         return body_q, swap_lin_ang(body_qd)
 
     def _interval(self, with_xp=False):
-        """The differentiable frame interval (built once per integrator),
-        with the live anchor planes when ``with_xp``."""
-        key = ("interval", id(self.integrator), self.steps_per_fr_interval, with_xp)
+        """The differentiable frame interval, with the live anchor planes
+        when ``with_xp``. It takes no acts or residual forces: both are
+        zero (reference dp_model.py:529/:536)."""
+        key = ("interval", self.steps_per_fr_interval, with_xp)
         if key not in self._kernels:
             self._kernels[key] = make_diff_interval(
-                self.integrator, self.dt, self.steps_per_fr_interval,
-                # residual forces and joint activations are structurally
-                # zero (reference dp_model.py:529/:536)
-                with_res=bool(self.opts.get("soa_with_res", False)),
-                with_act=bool(self.opts.get("soa_with_act", False)),
-                with_xp=with_xp,
-            )
+                self.integrator, self.dt, self.steps_per_fr_interval, with_xp=with_xp)
         return self._kernels[key]
 
     def _window(self, n_frames):
         """The no-gradient whole-window rollout used by eval."""
-        key = ("window", id(self.integrator), n_frames)
+        key = ("window", n_frames)
         if key not in self._kernels:
             self._kernels[key] = SoaWindow(
                 self.integrator, self.dt, self.steps_per_fr_interval, n_frames)
@@ -615,12 +610,13 @@ class phys_model:
         state0 = SimState(body_q0, body_qd0)
 
         # control reference at every substep: zeros(6) + queried joint
-        # angles (reference rearrange_pred, dp_model.py:554-572)
+        # angles (reference rearrange_pred, dp_model.py:554-572). Torques
+        # and residual forces are zero (reference dp_model.py:529/:536):
+        # every rollout takes acts and residual forces as None, and
+        # batch["torques"]/["res_f"] feed the regularizers alone.
         with spans.span("forward.rollout"):
             zeros6 = torch.zeros((E, S, 6), dtype=torch.float32, device=dev)
             ref_ja = torch.cat([zeros6, batch["queried_ja"]], -1).transpose(0, 1)
-            torques = torch.cat([zeros6, batch["torques"]], -1).transpose(0, 1)
-            res_f = swap_lin_ang(batch["res_f"]).transpose(0, 1)  # (S,E,B,6)
 
             sp = self._sim_params(params, joint_X_p=xp)
             quirks = bool(self.opts.get("ref_quirks", False))
@@ -631,9 +627,8 @@ class phys_model:
                 # the grad step discards aux (as the JAX grad step never
                 # computes it), so the vis-only grf/jaf are skipped
                 sim_q, sim_qd, grfs, jafs = rollout_soa(
-                    self.integrator, sp, state0, scrub(ref_ja), scrub(torques),
-                    scrub(res_f), self.dt, sub, interval_fn=self._interval(xp is not None),
-                    observables=False,
+                    self.integrator, sp, state0, scrub(ref_ja), None, None, self.dt, sub,
+                    interval_fn=self._interval(xp is not None), observables=False,
                 )
             elif xp is not None:
                 # live anchors: the window (K1) has no anchor planes, so the eval
@@ -643,8 +638,6 @@ class phys_model:
                         self.integrator, sp, state0, ref_ja, None, None, self.dt, sub,
                         interval_fn=self._interval(True))
             else:
-                # torques and residual forces are structurally zero: the window
-                # takes acts as None and has no residual input
                 sim_q, sim_qd, grfs, jafs = self._window(self.frames_per_wdw)(
                     state0, ref_ja, None, sp)
             sim_position = sim_q.transpose(0, 1)  # (E, F, B, 7)
@@ -748,13 +741,6 @@ class phys_model:
         noise[:, 3:7] *= 5.0
         return noise
 
-    def _to_device(self, t):
-        """A host tensor on the model's device: from pinned memory, without
-        making the host wait, on CUDA."""
-        if t is None or self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def _mesh_for(self, num_envs):
         """The mesh for an env count, or None for the unsharded path: dp the
         largest divisor of num_envs within the rank budget // tp, tp from
@@ -788,7 +774,7 @@ class phys_model:
             if self.is_eval:
                 spans.count("graph.eager_steps", 1)
                 with torch.no_grad():
-                    out, aux = self._forward_pure(self.params, self._to_device(frame_start),
+                    out, aux = self._forward_pure(self.params, to_device(frame_start, self.device),
                                                   None, w, False)
                 self._store_eval_aux(aux)
                 return out
@@ -801,7 +787,8 @@ class phys_model:
                 out, grads, norms, gnorm = self._graph_step(frame_start, noise, w, named)
             else:
                 spans.count("graph.eager_steps", 1)
-                fs_dev, noise_dev = self._to_device(frame_start), self._to_device(noise)
+                fs_dev = to_device(frame_start, self.device)
+                noise_dev = to_device(noise, self.device)
                 tensors = [t for _, t in named]
                 with self._leaves_need_grad(tensors):
                     out, grads = sharding.shard_train_step(
@@ -855,8 +842,7 @@ class phys_model:
         than one forward per update) are copied before the replay."""
         E = frame_start.shape[0]
         key = (E, self.frames_per_wdw, tuple(weights), noise is not None,
-               self.env.contact_mode, id(self.integrator),
-               bool(self.opts.get("ref_quirks", False)))
+               self.env.contact_generation, bool(self.opts.get("ref_quirks", False)))
         if self._graph is None or self._graph.key != key:
             self._graph = None  # its memory goes before the next capture takes more
             self._graph = StepGraph(self, key, weights, named, E, noise is not None)
@@ -879,7 +865,8 @@ class phys_model:
         vertex crosses the ground plane (builder.validate_hull_contacts).
         On a violation beyond the margin, fall back to the every-vertex
         contact set for all later rollouts (contact_fallback=False warns
-        only)."""
+        only): the kernels read the new set's constants at their next
+        launch, and the training step's graph is captured anew."""
         if self.env.contact_mode != "hull":
             return
         # rank 0's reading decides on every rank
@@ -892,8 +879,6 @@ class phys_model:
         if self.opts.get("contact_fallback", True):
             print("falling back to contact_mode='all' (reference-exact)")
             self.env.make_ground_contacts("all")
-            self.integrator = SemiImplicitIntegrator(self.env)
-            self._kernels.clear()
 
     def backward(self, loss):
         """No-op bridge: gradients were produced in forward()."""

@@ -4,8 +4,9 @@
 :class:`StepGraph`: the whole forward (``_forward_pure``), the gradient of
 its total loss in every tensor (``torch.autograd.grad``) and the gradient
 norms, captured once per key (envs, frames, loss weights, noise on or off,
-the contact set) into one ``torch.cuda.CUDAGraph`` and replayed on every
-later step. The host then launches one graph a step instead of the ~15k
+the contact set's generation, whose kernel constants the capture reads by
+address) into one ``torch.cuda.CUDAGraph`` and replayed on every later
+step. The host then launches one graph a step instead of the ~15k
 kernels that the forward and autograd's backward launch one by one, and
 makes no blocking copy: the step's two host inputs, the window starts and
 the initial state's noise (both drawn on the host from the model's
@@ -33,6 +34,18 @@ import torch
 
 from ..sim.soa_grad import ContactCounts
 from ..utils import spans
+
+
+def to_device(src, device, out=None):
+    """A host tensor (or None) on ``device``, into ``out`` when given: from
+    pinned memory, without making the host wait, on CUDA."""
+    if src is None:
+        return None
+    if device.type == "cuda":
+        src = src.pin_memory()
+    if out is None:
+        return src.to(device, non_blocking=True)
+    return out.copy_(src, non_blocking=True)
 
 
 class StepGraph:
@@ -65,9 +78,9 @@ class StepGraph:
         """Stage the host inputs, capture on the first CUDA step, replay:
         returns the outputs, valid until the next step."""
         with spans.span("forward.graph"):
-            self._copy(self.frame_start, frame_start)
+            to_device(frame_start, self.frame_start.device, self.frame_start)
             if self.noise is not None:
-                self._copy(self.noise, noise)
+                to_device(noise, self.noise.device, self.noise)
             if self.frame_start.device.type != "cuda":
                 spans.count("graph.eager_steps", 1)
                 self.outputs = self.run()
@@ -82,13 +95,6 @@ class StepGraph:
                 spans.count("k3.contact_triples", self.counts.triples)
                 spans.count("k3.active_contacts", self.counts.active.clone())
         return self.outputs
-
-    @staticmethod
-    def _copy(dst, src):
-        if dst.device.type == "cuda":
-            dst.copy_(src.pin_memory(), non_blocking=True)
-        else:
-            dst.copy_(src)
 
     def run(self):
         """The step on the static buffers: (losses, grads, norms, gnorm),

@@ -342,6 +342,8 @@ class ArticulationModel:
         self.contact_dist: Optional[np.ndarray] = None
         self.contact_material: Optional[np.ndarray] = None
         self.contact_mode: Optional[str] = None
+        # advanced by make_ground_contacts() alone: names the contact set
+        self.contact_generation = 0
         self._interior_body: Optional[np.ndarray] = None
         self._interior_point: Optional[np.ndarray] = None
         # (name, device) -> tensors built from the arrays above once
@@ -351,9 +353,11 @@ class ArticulationModel:
     def device_table(self, name, device, build):
         """``build()``'s tensors for ``device``, made once and kept under
         ``name`` and the device: a forward then copies nothing from the host
-        (and can be captured in a CUDA graph). For tables of the joints and
-        bodies, which do not change after ``finalize()``; the contact set
-        does (``make_ground_contacts``) and is not kept here."""
+        (and can be captured in a CUDA graph). The joints and bodies do not
+        change after ``finalize()``; the contact set does
+        (``make_ground_contacts``), so a table built from it puts
+        ``contact_generation`` into its ``name``. Every generation's tables
+        are kept: a captured graph may still read an older one."""
         key = (name, str(device))
         tables = self.device_tables.get(key)
         if tables is None:
@@ -443,6 +447,7 @@ class ArticulationModel:
         self.contact_dist = np.asarray(dist, np.float32)
         self.contact_material = np.asarray(np.stack(mat, 0), np.float32)
         self.contact_mode = mode
+        self.contact_generation += 1
         if int_body:
             self._interior_body = np.asarray(int_body, np.int32)
             self._interior_point = np.stack(int_point, 0).astype(np.float32)

@@ -246,25 +246,26 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-class PackedConsts:
-    """A wrapper's packed per-model constants (``pack_static(soa_static(
-    model))``), built once per device and kept alive here, with their
-    argument list. ``warp_ptrs(dev)`` gives the kernels' constant
-    arguments: body_i, body_f, cbody, cf, the per-body lists adj_off, adj,
-    c_off and the length of adj."""
+def warp_consts(model, dev) -> list:
+    """The kernels' constant arguments for the model's current contact set:
+    body_i, body_f, cbody, cf, the per-body lists adj_off, adj, c_off and
+    the length of adj. The packed tensors (``pack_static(soa_static(
+    model))``) are made once per device and contact set and kept on the
+    model (``model.device_table``), so every launch reads the constants of
+    the contact set whose ``model.contact_count`` it passes."""
 
-    def __init__(self, model):
-        self.model = model
-        self._by_dev = {}  # str(dev) -> (packed tensors, pointer list)
+    def build():
+        c = pack_static(soa_static(model, dev))
+        return c, [ptr(c[n]) for n in ("body_i", "body_f", "cbody", "cf", "adj_off", "adj",
+                                       "c_off")] + [int(c["adj"].numel())]
 
-    def warp_ptrs(self, dev) -> list:
-        key = str(dev)
-        if key not in self._by_dev:
-            c = pack_static(soa_static(self.model, dev))
-            args = [ptr(c[n]) for n in ("body_i", "body_f", "cbody", "cf", "adj_off", "adj",
-                                        "c_off")] + [int(c["adj"].numel())]
-            self._by_dev[key] = (c, args)
-        return self._by_dev[key][1]
+    return model.device_table(("warp_consts", model.contact_generation), dev, build)[1]
+
+
+def per_env(plane, E: int) -> int:
+    """1 where a plane holds one lane per env (lane width E, E > 1), 0 where
+    its one lane is shared: the kernels' per-env flag."""
+    return int(plane.shape[-1] == E and E > 1)
 
 
 def envs_per_cta(E: int) -> int:
@@ -378,7 +379,6 @@ class SoaWindow:
         self.F = int(n_frames)
         if self.F < 2 or self.sub < 1:
             raise ValueError("need n_frames >= 2 and substeps >= 1")
-        self._consts = PackedConsts(self.model)
         self.launches = 0  # kernel launches of this wrapper
 
     def __call__(self, state: SimState, joint_targets, joint_acts, params: SimParams):
@@ -416,9 +416,9 @@ class SoaWindow:
         out_q = torch.empty((F, E, B, 7), **f32)
         out_qd, out_grf, out_jaf = (torch.empty((F, E, B, 6), **f32) for _ in range(3))
 
-        pe = lambda n: int(planes[n].shape[-1] == E and E > 1)
+        pe = lambda n: per_env(planes[n], E)
         status = lib.soa_window_launch(
-            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *self._consts.warp_ptrs(dev),
+            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *warp_consts(model, dev),
             ptr(planes["gains"]), pe("gains"), ptr(planes["inv_m"]), pe("inv_m"),
             ptr(planes["inertia"]), pe("inertia"),
             ptr(planes["inv_inertia"]), pe("inv_inertia"),
@@ -500,7 +500,6 @@ class SoaRollout:
         if self.S < 1:
             raise ValueError("need substeps >= 1")
         self.planes = {n: p.detach() for n, p in traced_planes(self.model, self.params).items()}
-        self._consts = PackedConsts(self.model)
         self.launches = 0  # kernel launches of this wrapper
 
     def __call__(self, state: SimState, joint_targets, joint_acts=None) -> SimState:
@@ -530,7 +529,7 @@ class SoaRollout:
         out_q = torch.empty((E, B, 7), dtype=torch.float32, device=dev)
         out_qd = torch.empty((E, B, 6), dtype=torch.float32, device=dev)
         status = lib.soa_rollout_launch(
-            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *self._consts.warp_ptrs(dev),
+            ptr(bq), ptr(bqd), ptr(tgt), ptr(act), *warp_consts(model, dev),
             ptr(pl["gains"]), ptr(pl["inv_m"]), ptr(pl["inertia"]), ptr(pl["inv_inertia"]),
             ptr(out_q), ptr(out_qd),
             E, B, model.n_qd, model.contact_count, self.S,

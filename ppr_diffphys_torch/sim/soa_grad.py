@@ -36,8 +36,8 @@ import torch
 from ..csrc import build as kbuild
 from ..utils import spans
 from .integrator import SemiImplicitIntegrator, SimParams, SimState, interval
-from .soa import (TRACED_NAMES, XP_NAMES, PackedConsts, check_device, envs_per_cta, ptr,
-                  sim_args, traced_planes, window_work)
+from .soa import (TRACED_NAMES, XP_NAMES, check_device, envs_per_cta, per_env, ptr, sim_args,
+                  traced_planes, warp_consts, window_work)
 
 KERNEL = "soa_interval"
 KERNEL_FWD, KERNEL_BWD, KERNEL_REDUCE = (
@@ -127,8 +127,6 @@ class DiffInterval:
         self.with_act = bool(with_act)
         self.with_xp = bool(with_xp)
         self.names = TRACED_NAMES + (XP_NAMES if self.with_xp else ())
-        self._consts = PackedConsts(self.model)
-        self._contacts = {}  # device -> contact_tables(model, device), for the K3 counters
         self.count_sink = None
         self.launches = {KERNEL_FWD: 0, KERNEL_BWD: 0, KERNEL_REDUCE: 0}
 
@@ -173,14 +171,13 @@ class DiffInterval:
                 raise ValueError("parameter plane %s must be float32 on %s with lane 1 or E=%d"
                                  % (n, dev, E))
             pl.append(p.contiguous())
-        pe = lambda p: int(p.shape[-1] == E and E > 1)
         plane_args = []
         for p in pl[:len(TRACED_NAMES)]:
-            plane_args += [ptr(p), pe(p)]
+            plane_args += [ptr(p), per_env(p, E)]
         xp = pl[len(TRACED_NAMES):]
         if xp and len({p.shape[-1] for p in xp}) != 1:
             raise ValueError("the anchor planes must share one lane width")
-        plane_args += [ptr(p) for p in xp] + [pe(xp[0])] if xp else [None, None, None, 0]
+        plane_args += [ptr(p) for p in xp] + [per_env(xp[0], E)] if xp else [None, None, None, 0]
         tail = [E, B, n_qd, model.contact_count, S] + sim_args(model, self.dt)
         return out, pl, plane_args, tail
 
@@ -210,7 +207,7 @@ class DiffInterval:
                   if export else None)
         status = lib.soa_interval_fwd_launch(
             ptr(bq), ptr(bqd), ptr(seq["tgt"]), ptr(seq["act"]), ptr(seq["res"]),
-            *self._consts.warp_ptrs(dev), *plane_args, ptr(out_q), ptr(out_qd), ptr(sstate),
+            *warp_consts(self.model, dev), *plane_args, ptr(out_q), ptr(out_qd), ptr(sstate),
             *tail, envs_per_cta(E), torch.cuda.current_stream(dev).cuda_stream)
         kbuild.check(status, KERNEL_FWD)
         self.launches[KERNEL_FWD] += 1
@@ -242,23 +239,21 @@ class DiffInterval:
         dplanes = torch.empty((rows, B, E), **f32)
         status = lib.soa_interval_bwd_launch(
             ptr(sstate), ptr(seq["tgt"]), ptr(seq["act"]), ptr(seq["res"]),
-            *self._consts.warp_ptrs(dev), *plane_args, ptr(dq), ptr(dqd), ptr(dbq), ptr(dbqd),
+            *warp_consts(self.model, dev), *plane_args, ptr(dq), ptr(dqd), ptr(dbq), ptr(dbqd),
             ptr(dtgt), ptr(dact), ptr(dres), ptr(dplanes), *tail, envs_per_cta(E), stream)
         kbuild.check(status, KERNEL_BWD)
         self.launches[KERNEL_BWD] += 1
         sink = self.count_sink
         if sink is not None or spans.recording():
-            if dev not in self._contacts:
-                self._contacts[dev] = contact_tables(self.model, dev)
             triples = self.S * E * self.model.contact_count
-            active = active_contact_count(self.model, sstate, self._contacts[dev])
+            active = active_contact_count(self.model, sstate)
             if sink is not None:
                 sink.add(triples, active)
             else:
                 spans.count("k3.contact_triples", triples)
                 spans.count("k3.active_contacts", active)
 
-        shared = [not (p.shape[-1] == E and E > 1) for p in pl]
+        shared = [not per_env(p, E) for p in pl]
         summed = None
         if any(shared):
             summed = torch.empty((rows, B), **f32)
@@ -306,21 +301,21 @@ def _detached(params: SimParams) -> SimParams:
 
 def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: SimState,
                 joint_targets, joint_acts, res_f, dt: float, substeps_per_frame: int,
-                interval_fn: DiffInterval = None, with_res: bool = False,
-                with_act: bool = False, observables: bool = True):
+                interval_fn: DiffInterval = None, observables: bool = True):
     """The windowed rollout on frame intervals (pallas_soa_grad.py:765-862),
     with ``integrator.rollout``'s contract: states recorded at frame
     boundaries, grf/jaf from each boundary substep (evaluated by the plain
     force pipeline without gradient: they feed visualization only).
 
     joint_targets/joint_acts (S,E,n_qd) (acts may be None), res_f (S,E,B,6)
-    or None. Returns (body_q (F,E,B,7), body_qd (F,E,B,6), grf, jaf
-    (F,E,B,6)); gradients flow to state0, the targets, acts, residual forces
-    and params, a live ``joint_X_p`` ((B,7) or (E,B,7)) included, through
-    the interval kernels. ``observables=False`` skips the F boundary force
-    evaluations and returns None for grf and jaf; the states and gradients
-    are the same, since the observables neither feed them nor draw random
-    numbers."""
+    or None; without ``interval_fn`` the rollout builds an interval that
+    takes the acts and residual forces given. Returns (body_q (F,E,B,7),
+    body_qd (F,E,B,6), grf, jaf (F,E,B,6)); gradients flow to state0, the
+    targets, acts, residual forces and params, a live ``joint_X_p`` ((B,7)
+    or (E,B,7)) included, through the interval kernels.
+    ``observables=False`` skips the F boundary force evaluations and returns
+    None for grf and jaf; the states and gradients are the same, since the
+    observables neither feed them nor draw random numbers."""
     if params.body_com is not None:
         raise ValueError("rollout_soa takes body_com from the model: no interval kernel "
                          "has a COM plane")
@@ -331,8 +326,8 @@ def rollout_soa(integrator: SemiImplicitIntegrator, params: SimParams, state0: S
     if S != n_intervals * sub + 1:
         raise ValueError("joint_targets has %d rows, not sub*(F-1)+1 (sub=%d)" % (S, sub))
     if interval_fn is None:
-        interval_fn = make_diff_interval(integrator, dt, sub, with_res=with_res,
-                                         with_act=with_act, with_xp=with_xp)
+        interval_fn = make_diff_interval(integrator, dt, sub, with_res=res_f is not None,
+                                         with_act=joint_acts is not None, with_xp=with_xp)
     elif interval_fn.S != sub:
         raise ValueError("interval_fn has %d substeps, the window %d" % (interval_fn.S, sub))
     elif interval_fn.with_xp != with_xp:
@@ -441,17 +436,20 @@ def active_contacts(model, sstate) -> float:
 
 
 def contact_tables(model, device) -> tuple:
-    """The contacts' body index, body-frame point and distance on ``device``."""
-    return (torch.as_tensor(np.asarray(model.contact_body, np.int64), device=device),
-            torch.as_tensor(np.asarray(model.contact_point, np.float32), device=device),
-            torch.as_tensor(np.asarray(model.contact_dist, np.float32), device=device))
+    """The contacts' body index, body-frame point and distance on
+    ``device``, made once per contact set and kept on the model
+    (``model.device_table``)."""
+    return model.device_table(("contact_tables", model.contact_generation), device, lambda: (
+        torch.as_tensor(np.asarray(model.contact_body, np.int64), device=device),
+        torch.as_tensor(np.asarray(model.contact_point, np.float32), device=device),
+        torch.as_tensor(np.asarray(model.contact_dist, np.float32), device=device)))
 
 
-def active_contact_count(model, sstate, tables=None) -> torch.Tensor:
+def active_contact_count(model, sstate) -> torch.Tensor:
     """``active_contacts`` as a 0-d int64 tensor on the export's device,
-    read without making the host wait when ``tables`` (``contact_tables``
-    on that device) are given."""
-    cb, pt, dist = tables if tables is not None else contact_tables(model, sstate.device)
+    read without making the host wait once the device holds the contact
+    set's ``contact_tables``."""
+    cb, pt, dist = contact_tables(model, sstate.device)
     with torch.no_grad():
         t = sstate[:, :, 0:3][..., cb]  # (S,E,3,C)
         q = sstate[:, :, 3:7][..., cb]

@@ -6,7 +6,9 @@ defaults, so one ``opts`` dict drives both packages, except ``datadir``
 and ``urdf_dir``: they default to the reference repository's relative
 ``data/`` layout instead of the JAX package's absolute checkout paths.
 Callers in this repository pass in-repo paths explicitly. The engine/tile
-keys select JAX engines and are ignored by the port.
+keys select JAX engines and are ignored by the port, as are
+``soa_with_res``/``soa_with_act``: the port's rollouts take no residual
+forces or joint activations, which are zero in the reference.
 
 The whole pipeline is driven by a plain ``opts`` dict with the same key
 names as the reference (main.py:15-47), so lab4d-side code and run scripts

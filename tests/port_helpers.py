@@ -54,6 +54,18 @@ def a1_model(builder, import_urdf, contact_mode="hull"):
     return model
 
 
+def cube_with_centres(h):
+    """The port's TriMesh of a cube of half-size ``h`` whose vertices are its
+    8 corners and its 6 face centres: the convex hull keeps the corners, so
+    make_ground_contacts gives 8 contacts for it under 'hull' and 14 under
+    'all'."""
+    from ppr_diffphys_torch.sim.mesh import TriMesh, box_mesh
+
+    box = box_mesh(h, h, h)
+    centres = np.concatenate([np.eye(3), -np.eye(3)]) * h
+    return TriMesh(np.concatenate([box.vertices, centres]), box.faces)
+
+
 @contextlib.contextmanager
 def private_jax_rasterizer(tmpdir):
     """The JAX package's SoftwareRenderer with its library built by its own

@@ -35,6 +35,10 @@ EXCEPTIONS = {
     "flag.soa_e_tile": "the Pallas env tile (a TPU VMEM plan)",
     "flag.soa_ksub": "the Pallas substeps per call (a TPU VMEM plan)",
     "flag.rollout_unroll": "the XLA scan unroll factor",
+    "flag.soa_with_res": "residual forces are zero in the reference; no rollout of the port "
+                         "takes them",
+    "flag.soa_with_act": "joint activations are zero in the reference; no rollout of the port "
+                         "takes them",
 }
 
 CLASSES = [("models.phys_model", "phys_model"), ("models.interface", "phys_interface"),

@@ -22,7 +22,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ppr_diffphys_torch.data.amp_loader import DataLoader
 from ppr_diffphys_torch.models.phys_model import phys_model
+from ppr_diffphys_torch.sim import integrator as tint
 from ppr_diffphys_torch.sim import soa
+from ppr_diffphys_torch.sim.builder import GEO_MESH, Shape
 from ppr_diffphys_torch.sim.integrator import dof_index
 from ppr_diffphys_torch.sim.kinematics import fk_tables
 from ppr_diffphys_torch.utils import spans
@@ -119,6 +121,51 @@ def test_device_tables_equal_the_per_call_uploads(tmp_path):
         assert torch.equal(m._steps_idx_fr_t,
                            torch.as_tensor(m.steps_idx_fr, dtype=torch.float32))
         assert m._frame2step_t.shape == (F,)
+
+
+@pytest.mark.parametrize("fallback", [True, False], ids=["fallback", "no_fallback"])
+def test_hull_fallback_changes_the_contact_set_alone(tmp_path, monkeypatch, fallback):
+    """An eval that finds the hull assumption violated switches the model's
+    own contact set to 'all': the integrator and the window stay, the next
+    eval's rollout reads the new set, and the training step's graph is made
+    anew for it. With contact_fallback=False the set and the graph stay.
+    a1 has no mesh, so a cube mesh (8 hull, 14 contacts in all) goes on its
+    last link, which keeps the contacts body-sorted."""
+    m = _model(tmp_path, 2, 3, 0.0, graphed=True)
+    m.opts["contact_fallback"] = fallback
+    env = m.env
+    cube = H.cube_with_centres(0.01)
+    env.shapes.append(Shape(env.shapes[-1].body, np.array([0, 0, 0, 0, 0, 0, 1.0]), GEO_MESH,
+                            np.ones(3), cube, np.array([1e4, 0.0, 1e2, 1.0])))
+    env.make_ground_contacts("hull")
+    n_hull, gen, integ = env.contact_count, env.contact_generation, m.integrator
+    m.forward()
+    m.update()
+    graph = m._graph
+    seen = []
+    contacts = tint.eval_body_contacts
+
+    def spy(model, params, state):
+        seen.append((model is env, model.contact_count))
+        return contacts(model, params, state)
+
+    monkeypatch.setattr(tint, "eval_body_contacts", spy)
+    monkeypatch.setattr(env, "validate_hull_contacts", lambda body_q, margin=0.0: 1.0)
+    m.reinit_envs(1, frames_per_wdw=3, is_eval=True)
+    m.forward()
+    window = m._window(3)
+    assert set(seen) == {(True, n_hull)}
+    n = n_hull + 6 if fallback else n_hull
+    assert env.contact_mode == ("all" if fallback else "hull") and env.contact_count == n
+    assert env.contact_generation == gen + int(fallback)
+    assert m.integrator is integ and m._window(3) is window
+    seen.clear()
+    m.forward()
+    assert set(seen) == {(True, n)}
+    m.reinit_envs(2, frames_per_wdw=3, is_eval=False)
+    m.forward()
+    m.update()
+    assert (m._graph is graph) != fallback
 
 
 def test_inverse_without_its_check_is_inv(tmp_path):

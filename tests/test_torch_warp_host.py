@@ -506,3 +506,60 @@ def test_host_model_anchors_live_equal_baked(on_host, name):
     g1 = live._backward(s1, tp, ap, None, pl + [xp[n] for n in soa.XP_NAMES], dq, dqd)
     for a, b in zip(g0[:4] + tuple(g0[5]), g1[:4] + tuple(g1[5][:4])):
         assert torch.equal(a, b)
+
+
+def _mesh_chain(mode):
+    """The chain with a massless cube mesh under its last link
+    (``H.cube_with_centres``; the last, so the contacts stay body-sorted):
+    'hull' keeps the cube's 8 corners, 'all' adds its 6 face centres, the
+    bottom one level with the bottom corners, which are the lowest
+    contacts."""
+    b = synthetic.add_chain(tbuilder.ModelBuilder())
+    b.add_shape_mesh(3, (0.06, -0.07, 0.0), (0, 0, 0, 1), H.cube_with_centres(0.03),
+                     density=0.0, ke=1e4, kd=0.0, kf=1e2, mu=1.0)
+    model = b.finalize().make_ground_contacts(mode)
+    model.joint_attach_ke, model.joint_attach_kd = 16000.0, 200.0
+    return model
+
+
+def test_host_kernels_follow_the_contact_set(on_host):
+    """K1, K2, K3 with its contact counter and K4, launched under 'hull' and
+    again through the same wrappers after make_ground_contacts('all'), give
+    bit for bit what new wrappers on a model built with 'all' give: every
+    launch reads the constants of the contact set whose count it passes.
+    The face centres push, so the two sets give other results."""
+    on_host(1)
+    F = 3
+    model, fresh = _mesh_chain("hull"), _mesh_chain("all")
+    chain = synthetic.chain_model().contact_count
+    assert (model.contact_count, fresh.contact_count) == (chain + 8, chain + 14)
+    state, tgt, act, params = _problem(model, False, rows=SUB * (F - 1) + 1)
+    rng = np.random.RandomState(2)
+    dq = torch.as_tensor(rng.randn(7, model.n_links, E).astype(np.float32))
+    dqd = torch.as_tensor(rng.randn(6, model.n_links, E).astype(np.float32))
+
+    def wrappers(m):
+        integ = tint.SemiImplicitIntegrator(m)
+        return (soa.SoaWindow(integ, DT, SUB, F), soa_grad.DiffInterval(integ, DT, SUB),
+                soa.build_soa_rollout(integ, params, DT, SUB))
+
+    def launch(m, window, di, k4):
+        out = list(window._launch(state, tgt, None, params))
+        pl = _plane_list(m, params)
+        bq, bqd, tp, _ = _inner(state, tgt[:SUB], act[:SUB])
+        q, qd, sst = di._forward(bq, bqd, tp, None, None, pl, True)
+        di.count_sink = counts = soa_grad.ContactCounts("cpu")
+        dbq, dbqd, dtgt, _, _, dplanes = di._backward(sst, tp, None, None, pl, dq, dqd)
+        k4_out = k4._launch(state, tgt[:SUB], None)
+        return out + [q, qd, sst, dbq, dbqd, dtgt, *dplanes, counts.active,
+                      torch.tensor(counts.triples), k4_out.body_q, k4_out.body_qd]
+
+    kept = wrappers(model)
+    hull = launch(model, *kept)
+    model.make_ground_contacts("all")
+    after = launch(model, *kept)
+    want = launch(fresh, *wrappers(fresh))
+    for i, (a, b) in enumerate(zip(after, want)):
+        assert torch.equal(a, b), i
+    assert not torch.equal(hull[0], want[0]) and not torch.equal(hull[6], want[6])
+    assert int(hull[-3]) < int(want[-3])  # K3 counts the centres that penetrate
