@@ -8,6 +8,14 @@ runs the hand-written kernel (``csrc/soa_window.cu`` through
 ``sim/soa.py:SoaWindow``); on the CPU it runs the kernel's plain PyTorch
 version.
 
+On a CUDA device the grid prologue (whole-frame starts) is captured once
+per key into one CUDA graph and replayed on every later request
+(:class:`PrologueGraph`): the host launches one graph a request instead of
+the ~1k kernels of the MLPs on the substep grid, the gathers and FK, and
+makes no blocking copy (the starts go from pinned memory into a static
+buffer). The graph's outputs are static tensors that every request
+rewrites: a prologue's outputs are valid until the next ``prologue`` call.
+
 Usage:
     server = RolloutServer(opts, num_envs=4096, device="cuda")
     server.load_checkpoint(path)          # optional
@@ -27,6 +35,7 @@ from ..sim.kinematics import eval_fk
 from ..sim.soa import SoaWindow
 from ..utils import spans
 from .phys_model import phys_model
+from .step_graph import to_device
 
 # Env chunk of the per-env prologue: it evaluates the five MLPs at every
 # (env, substep) pair, so a chunk bounds its hidden activations
@@ -51,10 +60,12 @@ class RolloutServer:
         self.model.reinit_envs(num_envs, frames_per_wdw=self.frames, is_eval=True)
         m = self.model
         self.window = SoaWindow(m.integrator, m.dt, m.steps_per_fr_interval, self.frames)
+        self._graph = None  # the grid prologue's PrologueGraph
 
     def load_checkpoint(self, path):
-        # parameters are per-call inputs of the window: a checkpoint swap
-        # needs no rebuild
+        # parameters are per-call inputs of the window, and the prologue's
+        # graph reads them where they live (the load writes them in place):
+        # a checkpoint swap needs no rebuild and no new capture
         self.model.load_checkpoint(path)
 
     # ------------------------------------------------------------------
@@ -78,7 +89,8 @@ class RolloutServer:
         """The control MLPs are functions of time only: evaluate them once on
         the K absolute-substep grid and gather each env's window by index.
         Exact when every start lies on the substep grid inside
-        [0, total_frames - frames] (rollout() checks)."""
+        [0, total_frames - frames] (``_check``). Returns (SimState, ref); it
+        reads nothing from the host, so ``PrologueGraph`` can capture it."""
         m = self.model
         sub = m.steps_per_fr_interval
         K = (m.total_frames - 1) * sub + 1
@@ -93,11 +105,14 @@ class RolloutServer:
             k0 = torch.round(frame_start * sub).to(torch.long)
             q_init = torch.cat([grid_q[k0], grid_ja[k0]], -1)
             qd_init = swap_lin_ang(grid_qd[k0])
-            idx = k0[:, None] + torch.arange(S, device=self.device)[None]  # (E, S)
-            queried_ja = grid_ja[idx]
+            # the window's (S, E, n_qd) targets in one gather of the grid's
+            # rows, zero on the root's 6 as the per-env path's
+            grid_ref = torch.cat([torch.zeros((K, 6), device=self.device), grid_ja], -1)
+            idx = torch.arange(S, device=self.device)[:, None] + k0[None]  # (S, E)
+            ref = grid_ref[idx]
         with spans.span("prologue.fk"):
             body_q, body_qd = eval_fk(m.env, q_init, qd_init)
-        return body_q, body_qd, queried_ja
+        return SimState(body_q, body_qd), ref
 
     def _check(self, frame_start):
         """Validate frame_start on the caller's host array; returns (starts
@@ -125,27 +140,40 @@ class RolloutServer:
     @torch.no_grad()
     def prologue(self, frame_start=None):
         """Window inputs for ``frame_start`` (E,): the initial SimState and
-        the per-substep joint targets (S, E, n_qd). While the profiler
-        records, a call is the span ``prologue`` with its children
-        ``prologue.check``, ``prologue.mlp``, ``prologue.gather`` and
-        ``prologue.fk``."""
+        the per-substep joint targets (S, E, n_qd). Grid starts go through
+        the ``PrologueGraph`` of the present key, whose outputs the next call
+        rewrites: they are valid until then. While the profiler records, a
+        call is the span ``prologue`` with its children ``prologue.check``
+        and either ``prologue.graph`` (grid starts; ``prologue.mlp``,
+        ``.gather`` and ``.fk`` under it run only at a capture or off CUDA)
+        or ``prologue.mlp``, ``.gather`` and ``.fk`` (the per-env path,
+        which counts ``prologue.eager``)."""
         with spans.span("prologue"):
             with spans.span("prologue.check"):
                 k_host, grid = self._check(frame_start)
-                fs = torch.as_tensor(k_host, dtype=torch.float32, device=self.device)
             if grid:
-                body_q, body_qd, queried_ja = self._grid_prologue(fs)
-            else:
-                parts = [self._per_env_prologue(c) for c in torch.split(fs, PER_ENV_CHUNK)]
-                with spans.span("prologue.gather"):
-                    body_q, body_qd, queried_ja = (torch.cat(p, 0) for p in zip(*parts))
-            E, S = queried_ja.shape[:2]
-            # (S, E, n_qd), contiguous: the window kernel reads it as it is
+                return self._prologue_graph().step(k_host)
+            spans.count("prologue.eager", 1)
+            fs = torch.as_tensor(k_host, dtype=torch.float32, device=self.device)
+            parts = [self._per_env_prologue(c) for c in torch.split(fs, PER_ENV_CHUNK)]
             with spans.span("prologue.gather"):
+                body_q, body_qd, queried_ja = (torch.cat(p, 0) for p in zip(*parts))
+                E, S = queried_ja.shape[:2]
+                # (S, E, n_qd), contiguous: the window kernel reads it as it is
                 ref = torch.cat(
                     [torch.zeros((S, E, 6), device=self.device), queried_ja.transpose(0, 1)],
                     -1)
             return SimState(body_q, body_qd), ref
+
+    def _prologue_graph(self):
+        """The PrologueGraph of the present key, made anew when it changes:
+        the envs and frames fix its buffers' shapes, and the mocap table,
+        which ``init_global_q`` replaces, is read by address."""
+        key = (self.num_envs, self.frames, id(self.model.amp_table))
+        if self._graph is None or self._graph.key != key:
+            self._graph = None  # its memory goes before the next capture takes more
+            self._graph = PrologueGraph(self, key)
+        return self._graph
 
     @torch.no_grad()
     def rollout(self, frame_start=None):
@@ -156,3 +184,58 @@ class RolloutServer:
         # multiplies torque_mlp by 0): the window takes act=None
         body_q, _, _, _ = self.window(state, ref, None, self.model._sim_params())
         return body_q
+
+
+class PrologueGraph:
+    """The grid prologue (``RolloutServer._grid_prologue``) of one key on a
+    static (E,) ``frame_start`` buffer, a request's one host input. On CUDA
+    it is captured into one CUDA graph at the first call, after one eager
+    warm-up on a side stream (it builds what the prologue makes at first
+    use), and replayed on every call; off CUDA the same body runs eagerly
+    on the same buffer. The graph reads the parameters where they live and
+    the mocap table it was captured with (kept alive here; a new table
+    makes a new key), and writes ``(SimState(body_q, body_qd), ref)`` into
+    the same tensors on every replay: ``step``'s outputs are valid until
+    its next call. While the profiler records, a call is the span
+    ``prologue.graph`` (staging and the replay, or the capture) and counts
+    ``prologue.captures`` and ``prologue.replays``, or ``prologue.eager``
+    off CUDA."""
+
+    def __init__(self, server, key):
+        self.server = server
+        self.key = key
+        self.frame_start = torch.zeros((server.num_envs,), dtype=torch.float32,
+                                       device=server.device)
+        self.amp_table = server.model.amp_table  # alive while a graph may read it
+        self.graph = None
+        self.outputs = None  # (SimState, ref), rewritten by each call
+
+    def step(self, k_host):
+        """Stage the starts (a float64 host array), capture at the first
+        CUDA call, replay: the prologue's outputs, valid until the next
+        call."""
+        with spans.span("prologue.graph"):
+            to_device(torch.from_numpy(k_host.astype(np.float32)), self.frame_start.device,
+                      self.frame_start)
+            if self.frame_start.device.type != "cuda":
+                spans.count("prologue.eager", 1)
+                self.outputs = self.server._grid_prologue(self.frame_start)
+                return self.outputs
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            spans.count("prologue.replays", 1)
+        return self.outputs
+
+    def _capture(self):
+        dev = self.frame_start.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.server._grid_prologue(self.frame_start)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.outputs = self.server._grid_prologue(self.frame_start)
+        self.graph = graph
+        spans.count("prologue.captures", 1)

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import pickle
 import shutil
 
 import numpy as np
@@ -42,6 +43,26 @@ def serve_opts(**kw):
     )
     opts.update(kw)
     return build_opts(**opts)
+
+
+def perturbed_checkpoint(model, path, seed=3):
+    """``model``'s (the port's phys_model) parameters as a checkpoint file at
+    ``path``, with the three read MLPs' tensors and the masses scaled by 1 +
+    5 % noise and the ground offset moved; returns ``path``."""
+    rng = np.random.RandomState(seed)
+
+    def scale(tree):
+        if isinstance(tree, dict):
+            return {k: scale(v) for k, v in tree.items()}
+        return (tree * (1.0 + 0.05 * rng.randn(*tree.shape))).astype(np.float32)
+
+    state = model.state_np()
+    for k in ("root_pose_mlp", "joint_angle_mlp", "vel_mlp", "body_mass"):
+        state[k] = scale(state[k])
+    state["global_q"] = state["global_q"] + np.float32([0.01, 0.02, -0.01, 0, 0, 0, 0])
+    with open(path, "wb") as f:
+        pickle.dump(state, f)
+    return path
 
 
 def a1_model(builder, import_urdf, contact_mode="hull"):

@@ -848,3 +848,106 @@ def test_lab4d_frame_row_inputs_match_full_rows_on_the_card(tmp_path):
     assert float(np.median(list(gaps.values()))) <= TOL_GRAD_MEDIAN
     worst = max(gaps, key=gaps.get)
     assert gaps[worst] <= TOL_GRAD, (worst, gaps[worst])
+
+
+# ---- the serving grid prologue as one CUDA graph (models/serve.py) ----------
+def _server(tmp, E=64, F=4):
+    from ppr_diffphys_torch.models.serve import RolloutServer
+
+    return RolloutServer(H.serve_opts(logroot=str(tmp)), num_envs=E, frames=F, device="cuda")
+
+
+def _grid_starts(server, rng):
+    return rng.randint(0, server.model.total_frames - server.frames + 1,
+                       size=server.num_envs).astype(np.float32)
+
+
+def _assert_replay_is_eager(server, starts):
+    """``server.prologue`` (a replay) and ``server.rollout`` against the grid
+    prologue's body run eagerly on the same starts, and the window on it,
+    bit for bit; the replay's outputs are compared before the rollout's
+    replay rewrites them."""
+    with torch.no_grad():
+        want_state, want_ref = server._grid_prologue(torch.as_tensor(starts, device="cuda"))
+        want_q = server.window(want_state, want_ref, None, server.model._sim_params())[0]
+    want = (want_state.body_q, want_state.body_qd, want_ref)
+    state, ref = server.prologue(starts)
+    for name, a, b in zip(("body_q", "body_qd", "ref"), (state.body_q, state.body_qd, ref), want):
+        assert a.shape == b.shape and torch.equal(a, b), (name, float((a - b).abs().max()))
+    got_q = server.rollout(starts)
+    assert torch.equal(got_q, want_q), float((got_q - want_q).abs().max())
+
+
+@pytest.mark.cuda
+def test_replayed_prologue_equals_eager(tmp_path):
+    """At 64 envs x 4 frames, three requests with different whole-frame
+    starts, then one after a checkpoint swap (the load writes the parameters
+    in place, which the graph reads): each replayed prologue and rollout bit
+    for bit the eager ones; one capture, one replay a prologue call."""
+    _need_gpu()
+    server = _server(tmp_path)
+    rng = np.random.RandomState(11)
+    before = {}
+
+    def requests():
+        for i in range(3):
+            _assert_replay_is_eager(server, _grid_starts(server, rng))
+        starts = _grid_starts(server, rng)
+        before["q"] = server.rollout(starts)
+        server.load_checkpoint(H.perturbed_checkpoint(server.model, str(tmp_path / "c.pth")))
+        _assert_replay_is_eager(server, starts)
+        before["after"] = server.rollout(starts)
+
+    c = _counted(requests)
+    assert c["prologue.captures"] == 1 and c["prologue.replays"] == 10
+    assert "prologue.eager" not in c
+    assert not torch.equal(before["q"], before["after"])  # the new parameters served
+
+
+@pytest.mark.cuda
+def test_prologue_recaptures_when_its_key_changes(tmp_path):
+    """New envs, new frames and a new mocap table (``init_global_q`` makes
+    one) each capture anew; off-grid starts run the per-env prologue
+    eagerly and leave the graph to be replayed again."""
+    _need_gpu()
+    server = _server(tmp_path)
+    rng = np.random.RandomState(12)
+
+    def calls():
+        _assert_replay_is_eager(server, _grid_starts(server, rng))
+        server.num_envs = 32
+        _assert_replay_is_eager(server, _grid_starts(server, rng))
+        off = _grid_starts(server, rng) + 0.5
+        state, ref = server.prologue(off)
+        assert state.body_q.shape == (32, 13, 7) and torch.isfinite(ref).all()
+        _assert_replay_is_eager(server, _grid_starts(server, rng))
+        server.frames = 3
+        server.window = soa.SoaWindow(server.model.integrator, server.model.dt,
+                                      server.model.steps_per_fr_interval, 3)
+        _assert_replay_is_eager(server, _grid_starts(server, rng))
+        server.model.init_global_q()
+        server.model.reinit_envs(32, frames_per_wdw=3, is_eval=True)
+        _assert_replay_is_eager(server, _grid_starts(server, rng))
+
+    c = _counted(calls)
+    assert c["prologue.captures"] == 4 and c["prologue.replays"] == 10
+    assert c["prologue.eager"] == 1
+
+
+@pytest.mark.cuda
+def test_replayed_prologue_makes_no_sync(tmp_path):
+    """A replayed prologue synchronizes nothing: the starts go from pinned
+    memory into the static buffer (torch's sync debug mode raises on a
+    blocking copy or a host read)."""
+    _need_gpu()
+    server = _server(tmp_path)
+    rng = np.random.RandomState(13)
+    server.rollout(_grid_starts(server, rng))
+    torch.cuda.synchronize()
+    starts = _grid_starts(server, rng)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, ref = server.prologue(starts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert server._graph.graph is not None and torch.isfinite(ref).all()

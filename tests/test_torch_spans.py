@@ -45,6 +45,10 @@ TRAIN_TREE = {
 }
 PROLOGUE_TREE = {"prologue": None, "prologue.check": "prologue", "prologue.mlp": "prologue",
                  "prologue.gather": "prologue", "prologue.fk": "prologue"}
+# grid starts: the grid prologue under its graph's span (here run eagerly)
+GRID_TREE = dict(PROLOGUE_TREE, **{"prologue.graph": "prologue", "prologue.mlp": "prologue.graph",
+                                   "prologue.gather": "prologue.graph",
+                                   "prologue.fk": "prologue.graph"})
 
 
 @pytest.fixture(autouse=True)
@@ -150,9 +154,15 @@ def test_prologue_records_its_children(tmp_path):
             st, ref = server.prologue(starts)
             server.window(st, ref, None, server.model._sim_params())
     sp = spans.summary()["spans"]
-    assert set(sp) == set(PROLOGUE_TREE) | {"window"}
-    for name, parent in PROLOGUE_TREE.items():
-        assert sp[name]["parent"] == parent and sp[name]["roots"] == 2, name
+    assert set(sp) == set(GRID_TREE) | {"window"}
+    for name in PROLOGUE_TREE:
+        assert sp[name]["roots"] == 2, name
+    by_root = {}
+    for name, parent, root, _, _ in spans.raw():
+        by_root.setdefault(root, set()).add((name, parent))
+    window = {("window", None)}
+    assert sorted(by_root.values(), key=len) == [window, window, set(PROLOGUE_TREE.items()),
+                                                 set(GRID_TREE.items())]
     assert sp["window"]["parent"] is None and sp["window"]["roots"] == 2
     assert sp["prologue.mlp"]["calls"] == 2 and sp["prologue.fk"]["calls"] == 2
     kids = sum(s["host_ms"] for s in sp.values() if s["parent"] == "prologue")
